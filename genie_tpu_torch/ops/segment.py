@@ -1,0 +1,99 @@
+"""Fixed-k gather means and the dense averaging matrix.
+
+Port of ``genie_tpu/ops/segment.py:82-179``. GENIE's graphs have fixed
+fan-in (station kNN k=8, source kNN k=15), so a mean aggregation is a gather
+plus a masked mean over a k axis, or, with the row-stochastic matrix ``A``
+that :func:`aggregation_matrix` builds, one matrix product.
+
+Product-graph tensors here carry any number of leading batch dimensions
+before ``(n_src, n_sta, C)``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def gather_sum(x, nbr_idx, nbr_valid=None):
+    """``out[i] = Σ_k x[nbr_idx[i, k]]``; x (N, C), nbr_idx (M, k)."""
+    g = x[nbr_idx.long()]
+    if nbr_valid is not None:
+        g = g * nbr_valid[..., None]
+    return g.sum(dim=1)
+
+
+def gather_mean(x, nbr_idx, nbr_valid=None):
+    g = x[nbr_idx.long()]
+    if nbr_valid is None:
+        return g.mean(dim=1)
+    g = g * nbr_valid[..., None]
+    cnt = torch.clamp_min(nbr_valid.sum(dim=1, keepdim=True), 1)
+    return g.sum(dim=1) / cnt
+
+
+def gather_mean_sta_axis(feat, sta_nbr, sta_valid=None):
+    """``out[..., s, i] = mean_k feat[..., s, sta_nbr[i, k]]`` over valid k
+    (the station relation of the product graph)."""
+    g = feat[..., sta_nbr.long(), :]                 # (..., n_src, n_sta, k, C)
+    if sta_valid is None:
+        return g.mean(dim=-2)
+    g = g * sta_valid[..., None]
+    cnt = torch.clamp_min(sta_valid.sum(dim=1), 1)[:, None]
+    return g.sum(dim=-2) / cnt
+
+
+def gather_mean_src_axis(feat, src_nbr, src_valid=None):
+    """``out[..., s, i] = mean_k feat[..., src_nbr[s, k], i]`` (the source
+    relation of the product graph)."""
+    g = feat[..., src_nbr.long(), :, :]              # (..., n_src, k, n_sta, C)
+    if src_valid is None:
+        return g.mean(dim=-3)
+    g = g * src_valid[:, :, None, None]
+    cnt = torch.clamp_min(src_valid.sum(dim=1), 1)[:, None, None]
+    return g.sum(dim=-3) / cnt
+
+
+def aggregation_weights(nbr_idx, nbr_valid=None, dtype=torch.float32):
+    """Per-slot weights ``valid / deg`` of the mean over a (m, k) neighbour
+    table — the nonzeros of :func:`aggregation_matrix`, kept sparse."""
+    w = (torch.ones(nbr_idx.shape, dtype=dtype, device=nbr_idx.device)
+         if nbr_valid is None else nbr_valid.to(dtype))
+    deg = torch.clamp_min(w.sum(dim=1, keepdim=True), 1.0)
+    return w / deg
+
+
+def aggregation_matrix(nbr_idx, n: int, nbr_valid=None, dtype=torch.float32):
+    """Row-normalized averaging matrix A (m, n): ``A[i, j] = 1/deg(i)`` iff j
+    is a valid neighbour of i."""
+    m = nbr_idx.shape[0]
+    a = torch.zeros((m, n), dtype=dtype, device=nbr_idx.device)
+    rows = torch.arange(m, device=nbr_idx.device)[:, None].expand_as(nbr_idx)
+    a.index_put_((rows.reshape(-1), nbr_idx.long().reshape(-1)),
+                 aggregation_weights(nbr_idx, nbr_valid, dtype).reshape(-1),
+                 accumulate=True)
+    return a
+
+
+def matmul_mean_sta_axis(feat, a_sta):
+    """``out[..., s, i, c] = Σ_j A[i, j]·feat[..., s, j, c]``."""
+    return torch.matmul(a_sta, feat)
+
+
+def matmul_mean_src_axis(feat, a_src):
+    """``out[..., i, s, c] = Σ_j A[i, j]·feat[..., j, s, c]``; a_src (n_src, n_src)."""
+    *lead, n_src, n_sta, c = feat.shape
+    out = torch.matmul(a_src, feat.reshape(*lead, n_src, n_sta * c))
+    return out.reshape(*lead, n_src, n_sta, c)
+
+
+def dense_to_neighbours(a):
+    """Padded ``(nbr, w)`` lists of a dense (m, n) matrix: k is the largest
+    count of nonzeros in any row; padded slots carry weight 0 and index 0.
+    Exact: ``A @ x == Σ_k w[:, k]·x[nbr[:, k]]``."""
+    nz = a != 0
+    k = max(int(nz.sum(dim=1).max().item()), 1)
+    # stable sort puts each row's nonzero columns first, in column order
+    order = torch.sort((~nz).to(torch.int8), dim=1, stable=True).indices[:, :k]
+    w = torch.gather(a, 1, order)
+    nbr = torch.where(w != 0, order, torch.zeros_like(order))
+    return nbr.to(torch.int32).contiguous(), w.contiguous()

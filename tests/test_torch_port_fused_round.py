@@ -1,0 +1,219 @@
+"""The fused dual-relation round of the port against the JAX package.
+
+The plain PyTorch twin (what a CPU tensor runs) is held to the Pallas kernel
+in interpret mode and to its XLA reference at atol 2e-5 (the tolerance of
+tests/test_pallas_fused.py); the round-2 and association forms (z ≠ x,
+through the k-neighbour table) are held to the same expressions written with
+the JAX package's own ops. The CUDA kernel itself is held to the twin by a
+test that needs the card. JAX is imported inside the tests that compare
+with it, so the card's machine (no JAX) can run this file with ``-m cuda``."""
+
+import numpy as np
+import pytest
+import torch
+
+from genie_tpu_torch.ops.fused_round import (fused_dual_round, fused_round,
+                                             fused_round_plain)
+from genie_tpu_torch.ops.segment import (aggregation_matrix, aggregation_weights,
+                                         dense_to_neighbours)
+
+ATOL = 2e-5
+
+
+def _dense_inputs(seed=0, n_src=64, n_sta=16, c=8, m=4, h=8):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n_src, n_sta, c)).astype(np.float32)
+    agg_src = rng.normal(size=(n_src, n_sta, c)).astype(np.float32)
+    mask = (rng.random((n_src, n_sta, m)) > 0.5).astype(np.float32)
+    a_sta = rng.random((n_sta, n_sta)).astype(np.float32)
+    a_sta /= a_sta.sum(1, keepdims=True)
+    w1 = rng.normal(size=(2 * c + m, h)).astype(np.float32) * 0.3
+    b1 = rng.normal(size=(h,)).astype(np.float32)
+    w2 = rng.normal(size=(2 * c + m, h)).astype(np.float32) * 0.3
+    b2 = rng.normal(size=(h,)).astype(np.float32)
+    slopes = np.asarray([0.25, 0.3, 0.15], np.float32)
+    return x, agg_src, mask, a_sta, w1, b1, w2, b2, slopes
+
+
+@pytest.mark.parametrize("seed,n_sta,c,h", [(0, 16, 8, 8), (1, 11, 30, 15)])
+def test_plain_matches_jax_reference(seed, n_sta, c, h):
+    jnp = pytest.importorskip("jax.numpy")
+    from genie_tpu.ops.pallas_fused import fused_dual_round_reference
+
+    args = _dense_inputs(seed, n_sta=n_sta, c=c, h=h)
+    want = np.asarray(fused_dual_round_reference(*map(jnp.asarray, args)))
+    got = fused_dual_round(*map(torch.from_numpy, args)).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+def test_plain_matches_pallas_kernel_interpret():
+    jnp = pytest.importorskip("jax.numpy")
+    from jax.experimental.pallas import tpu as pltpu
+
+    from genie_tpu.ops.pallas_fused import fused_dual_round as jax_fused_dual_round
+
+    args = _dense_inputs(2)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jax_fused_dual_round(*map(jnp.asarray, args)))
+    got = fused_dual_round(*map(torch.from_numpy, args)).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+def _knn_table(rng, n_sta, k, n_invalid=2):
+    nbr = np.stack([rng.choice(n_sta, k, replace=False) for _ in range(n_sta)])
+    valid = np.ones((n_sta, k), bool)
+    valid[rng.choice(n_sta, n_invalid, replace=False), -1] = False
+    return nbr.astype(np.int32), valid
+
+
+def _jax_round(x, z, agg_src, mask, nbr, valid, w1, b1, w2, b2, a_sta, a_out):
+    """One round as the JAX layers write it (layers.py:121-125, 128-132,
+    311-321): station mean through the package's gather op."""
+    import jax.numpy as jnp
+
+    from genie_tpu.ops.segment import mean_sta_axis
+
+    def prelu(v, a):
+        return jnp.maximum(v, 0.0) + a * jnp.minimum(v, 0.0)
+
+    agg_sta = mean_sta_axis(prelu(z, a_sta), nbr, valid)
+    h1 = jnp.concatenate((x, agg_sta, mask), -1) @ w1 + b1
+    h2 = jnp.concatenate((x, agg_src, mask), -1) @ w2 + b2
+    return prelu(jnp.concatenate((h1, h2), -1), a_out)
+
+
+@pytest.mark.parametrize("form", ["round2", "assoc"])
+def test_round_forms_match_jax_expressions(form):
+    """z ≠ x: round 2 of DataAggregation (input 60, H 15, M 4) and the
+    association rounds (M 5), through the (nbr, valid/deg) table."""
+    jnp = pytest.importorskip("jax.numpy")
+    cx, cz, m, h = {"round2": (60, 30, 4, 15), "assoc": (30, 30, 5, 30)}[form]
+    rng = np.random.default_rng(7)
+    B, n_src, n_sta, k = 2, 12, 9, 4
+    x = rng.normal(size=(B, n_src, n_sta, cx)).astype(np.float32)
+    z = rng.normal(size=(B, n_src, n_sta, cz)).astype(np.float32)
+    agg_src = rng.normal(size=(B, n_src, n_sta, cz)).astype(np.float32)
+    mask = (rng.random((B, n_src, n_sta, m)) > 0.5).astype(np.float32)
+    nbr, valid = _knn_table(rng, n_sta, k)
+    d = cx + cz + m
+    w1, w2 = (rng.normal(size=(d, h)).astype(np.float32) * 0.2 for _ in range(2))
+    b1, b2 = (rng.normal(size=(h,)).astype(np.float32) for _ in range(2))
+    a_sta, a_out = 0.21, 0.13
+    want = np.stack([np.asarray(_jax_round(
+        *map(jnp.asarray, (x[b], z[b], agg_src[b], mask[b], nbr, valid,
+                           w1, b1, w2, b2)), a_sta, a_out)) for b in range(B)])
+    T = torch.from_numpy
+    w = aggregation_weights(T(nbr), T(valid))
+    got = fused_round(T(x), T(z), T(agg_src), T(mask), T(nbr), w, T(w1.T.copy()),
+                      T(b1), T(w2.T.copy()), T(b2), torch.tensor([a_sta, a_out]))
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+
+
+def test_aggregation_matrix_matches_jax_and_neighbour_lists_are_exact():
+    jnp = pytest.importorskip("jax.numpy")
+    from genie_tpu.ops.segment import aggregation_matrix as jax_aggregation_matrix
+
+    rng = np.random.default_rng(3)
+    nbr, valid = _knn_table(rng, 10, 4)
+    want = np.asarray(jax_aggregation_matrix(jnp.asarray(nbr), 10, jnp.asarray(valid)))
+    a = aggregation_matrix(torch.from_numpy(nbr), 10, torch.from_numpy(valid))
+    np.testing.assert_allclose(a.numpy(), want, atol=1e-7)
+    nb, w = dense_to_neighbours(a)
+    x = torch.randn(10, 5, generator=torch.Generator().manual_seed(0))
+    np.testing.assert_allclose((x[nb.long()] * w[..., None]).sum(1).numpy(),
+                               (a @ x).numpy(), atol=1e-6)
+
+
+@pytest.mark.parametrize("op", ["gather_sum", "gather_mean", "gather_mean_sta_axis",
+                                "gather_mean_src_axis", "matmul_mean_sta_axis",
+                                "matmul_mean_src_axis"])
+def test_segment_ops_match_jax(op):
+    jnp = pytest.importorskip("jax.numpy")
+    import genie_tpu.ops.segment as jseg
+    import genie_tpu_torch.ops.segment as tseg
+
+    rng = np.random.default_rng(11)
+    n_src, n_sta, c, k = 9, 7, 5, 3
+    feat = rng.normal(size=(n_src, n_sta, c)).astype(np.float32)
+    if op.startswith("gather_mean_") or op.startswith("matmul_"):
+        n = n_src if "src" in op else n_sta
+        nbr, valid = _knn_table(rng, n, k)
+        if op.startswith("matmul_"):
+            a = np.asarray(jseg.aggregation_matrix(jnp.asarray(nbr), n, jnp.asarray(valid)))
+            args = (feat, a)
+        else:
+            args = (feat, nbr, valid)
+    else:
+        x = feat.reshape(-1, c)[:12]
+        nbr, valid = _knn_table(rng, 12, k)
+        args = (x, nbr, valid)
+    want = np.asarray(getattr(jseg, op)(*map(jnp.asarray, args)))
+    got = getattr(tseg, op)(*map(torch.from_numpy, args)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6)
+    # a leading window axis carries through the product-graph ops
+    if op != "gather_sum" and op != "gather_mean":
+        got2 = getattr(tseg, op)(torch.from_numpy(np.stack([args[0], args[0]])),
+                                 *map(torch.from_numpy, args[1:])).numpy()
+        np.testing.assert_allclose(got2[1], want, atol=1e-6)
+
+
+def test_knn_with_context_mask_matches_jax():
+    jnp = pytest.importorskip("jax.numpy")
+    from genie_tpu.ops.knn import knn as jax_knn
+    from genie_tpu_torch.ops.knn import knn
+
+    rng = np.random.default_rng(12)
+    ctx = rng.normal(size=(20, 3)).astype(np.float32)
+    q = rng.normal(size=(6, 3)).astype(np.float32)
+    mask = np.ones(20, bool)
+    mask[::3] = False
+    jidx, jval = jax_knn(jnp.asarray(ctx), jnp.asarray(q), 5, jnp.asarray(mask))
+    idx, val = knn(torch.from_numpy(ctx), torch.from_numpy(q), 5, torch.from_numpy(mask))
+    np.testing.assert_array_equal(val.numpy(), np.asarray(jval))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    assert mask[idx.numpy()].all()
+
+
+def test_kernel_wrapper_refuses_unsupported_devices():
+    """No silent plain fallback: a tensor that is neither on the CPU nor on
+    a CUDA device is refused."""
+    t = torch.empty((2, 3, 4), device="meta")
+    nbr = torch.zeros((3, 2), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        fused_round(t, t, t, t, nbr, nbr.float(), torch.empty(2, 12, device="meta"),
+                    torch.empty(2, device="meta"), torch.empty(2, 12, device="meta"),
+                    torch.empty(2, device="meta"), torch.empty(2, device="meta"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_sta,k", [(37, 8), (600, 5)])
+def test_cuda_kernel_matches_plain(n_sta, k):
+    """Needs the card: the hand-written kernel against its plain twin for
+    the three round forms plus a narrow H = 8 form, f32 with TF32 off;
+    600 stations exceed one thread per station (512 per block)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    rng = np.random.default_rng(0)
+    nbr, valid = _knn_table(rng, n_sta, k)
+    nbr = torch.from_numpy(nbr).to(dev)
+    w = aggregation_weights(nbr, torch.from_numpy(valid).to(dev))
+    for cx, cz, m, h, same in ((30, 30, 4, 30, True), (60, 30, 4, 15, False),
+                               (30, 30, 5, 30, False), (8, 8, 4, 8, True)):
+        x = torch.randn((3, 20, n_sta, cx), generator=g, device=dev)
+        z = x if same else torch.randn((3, 20, n_sta, cz), generator=g, device=dev)
+        agg = torch.randn((3, 20, n_sta, cz), generator=g, device=dev)
+        mask = (torch.rand((3, 20, n_sta, m), generator=g, device=dev) > 0.5).float()
+        d = cx + cz + m
+        ws = [torch.randn(s, generator=g, device=dev) * 0.2
+              for s in ((h, d), (h,), (h, d), (h,))]
+        args = (x, z, agg, mask, nbr, w, *ws, torch.tensor([0.25, 0.1], device=dev))
+        n0 = fused_round.launches
+        got = fused_round(*args)
+        torch.cuda.synchronize()
+        assert fused_round.launches == n0 + 1
+        want = fused_round_plain(*args)
+        assert float((got - want).abs().max()) <= 1e-4

@@ -1,0 +1,157 @@
+"""The PyTorch port stands alone: no JAX, flax, optax or genie_tpu module is
+imported by any genie_tpu_torch module, entry points do not silently run on
+the CPU, and options the port does not carry yet raise."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+
+_IMPORT_ALL = r"""
+import importlib, json, pkgutil, sys
+import genie_tpu_torch
+names = ["genie_tpu_torch"]
+for m in pkgutil.walk_packages(genie_tpu_torch.__path__, "genie_tpu_torch."):
+    importlib.import_module(m.name)
+    names.append(m.name)
+from genie_tpu_torch.params import load_flax_params, load_into
+from genie_tpu_torch.models.detector import Detector
+tree = load_flax_params("projects/NC_EHZ/run6/params.pkl")
+load_into(Detector(), tree)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "genie_tpu"))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_port_imports_no_jax_flax_optax_or_genie_tpu():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT)
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == []
+    for mod in ("genie_tpu_torch.infer.pipeline", "genie_tpu_torch.ops.fused_round",
+                "genie_tpu_torch.models.layers", "genie_tpu_torch.params"):
+        assert mod in res["modules"]
+
+
+def test_port_sources_do_not_name_jax():
+    """Belt and braces over the runtime check: no import line of the port
+    or of chip_smoke.py names a JAX-side package."""
+    files = sorted((ROOT / "genie_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for f in files:
+        for line in f.read_text().splitlines():
+            s = line.strip()
+            if s.startswith(("import ", "from ")):
+                mod = s.split()[1].split(".")[0]
+                assert mod not in ("jax", "jaxlib", "flax", "optax", "genie_tpu"), (f, s)
+
+
+def _tiny_ctx(cfg):
+    from genie_tpu_torch.train.trainer import build_domain_context
+
+    rng = np.random.default_rng(0)
+    sta = rng.uniform(-60e3, 60e3, (6, 3)).astype(np.float32)
+    grids = rng.uniform(-80e3, 80e3, (1, 12, 3)).astype(np.float32)
+    trv = np.linalg.norm(grids[:, :, None] - sta[None, None], axis=-1)
+    trv = np.stack((trv / 5500.0, trv / 3100.0), -1)
+    return build_domain_context(cfg, sta, sta, grids, grids, trv, "cpu")
+
+
+def _tiny_cfg():
+    from genie_tpu_torch.config import Config
+
+    cfg = Config()
+    cfg.graph.k_sta_edges = 3
+    cfg.graph.k_spc_edges = 4
+    cfg.graph.k_time_edges = 3
+    cfg.graph.k_spatial_attn = 3
+    cfg.process.n_query_grid = 0
+    return cfg
+
+
+def test_entry_point_without_device_raises_when_no_cuda(monkeypatch):
+    from genie_tpu_torch.device import resolve_device
+    from genie_tpu_torch.infer.pipeline import InferencePipeline
+    from genie_tpu_torch.models.detector import Detector
+
+    cfg = _tiny_cfg()
+    ctx = _tiny_ctx(cfg)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        InferencePipeline(Detector(), cfg, ctx, lambda s, x: None)
+    with pytest.raises(RuntimeError):
+        resolve_device("cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("option", ["use_updated_model_definition", "use_absolute_pos",
+                                    "use_subgraph",
+                                    "sweep_half", "mag_model", "kmeans_query_grid",
+                                    "assoc_mode"])
+def test_unported_options_raise(option):
+    from genie_tpu_torch.infer.pipeline import InferencePipeline
+    from genie_tpu_torch.models.detector import Detector
+
+    cfg = _tiny_cfg()
+    ctx = _tiny_ctx(cfg)
+    kw = dict(device="cpu")
+    if option in ("use_updated_model_definition", "use_absolute_pos"):
+        with pytest.raises(NotImplementedError):
+            Detector(**{option: True})
+        return
+    if option == "use_subgraph":
+        cfg.graph.use_subgraph = True
+    elif option == "sweep_half":
+        kw["sweep_half"] = True
+    elif option == "mag_model":
+        kw["mag_model"] = {"model": None}
+    elif option == "kmeans_query_grid":
+        cfg.process.n_query_grid = 100
+    elif option == "assoc_mode":
+        cfg.process.assoc_mode = "spam"
+    with pytest.raises(NotImplementedError):
+        InferencePipeline(Detector(), cfg, ctx, lambda s, x: None, **kw)
+
+
+def test_run6_config_in_code_matches_yaml():
+    """chip_smoke.py sets the run6 inference settings in code; they must be
+    exactly those of projects/NC_EHZ/run6/config.yaml."""
+    import yaml
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    want = yaml.safe_load((ROOT / "projects/NC_EHZ/run6/config.yaml").read_text())
+    got = chip_smoke.run6_config().to_dict()
+    for sec in ("region", "velocity", "graph", "model", "process"):
+        for k, v in want[sec].items():
+            g = got[sec][k]
+            assert (list(g) if isinstance(g, tuple) else g) == v, (sec, k)
+
+
+def test_flax_checkpoint_loads_without_optax():
+    from genie_tpu_torch.models.detector import Detector
+    from genie_tpu_torch.params import flatten_tree, load_flax_params, load_into
+
+    tree = load_flax_params(ROOT / "projects/NC_EHZ/run6/params.pkl")
+    flat = flatten_tree(tree)
+    assert sum(v.size for v in flat.values()) == 63226
+    model = load_into(Detector(), tree)
+    assert sum(p.numel() for p in model.parameters()) == 63226
+    np.testing.assert_array_equal(
+        model.data_agg.l1_t1_2.weight.detach().numpy(),
+        flat["data_agg/l1_t1_2/kernel"].T)
+    np.testing.assert_array_equal(
+        model.arrivals.chunks.PReLU_3.a.detach().numpy(),
+        flat["arrivals/chunks/PReLU_3/a"])
