@@ -14,7 +14,8 @@ Phases (any failure exits non-zero):
      sources = 8000 rows, 374 stations): round 1 (C = H = 30, M = 4), round 2
      (input 60, H = 15), association (M = 5); max |kernel − plain| ≤ 1e-4 in
      float32 with TF32 off; and time kernel, plain version and the dense
-     ``torch.matmul`` formulation;
+     ``torch.matmul`` formulation, with the kernel's share of its bound and
+     its achieved GB/s and TFLOP/s;
   3. build an NC-scale domain: the run6 grids (5 × 500 sources), 374
      stations drawn from ``--seed`` inside the grid box, homogeneous travel
      times from the mean run6 velocities, the 10,000-node detection query
@@ -182,7 +183,9 @@ def check_kernel(sta_nbr, sta_w, seed: int):
                                                         k, z_is_x)
         rec = dict(form=name, rows=rows, n_sta=n_sta, cx=cx, cz=cz, m=m, h=h,
                    max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops)
+                   bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
+                   share_of_bound=bound_ms / ms, gb_per_s=nbytes / ms / 1e6,
+                   tflop_per_s=flops / ms / 1e9)
         print(f"[kernel] {json.dumps(rec)}", flush=True)
         records.append(rec)
         del x, z, agg_src, mask, args

@@ -16,34 +16,256 @@
 // Dense in the other three rounds; agg_src (the source-axis mean) arrives
 // precomputed, as in the TPU kernel.
 //
-// What bounds it on this card: bytes. At the sweep shape (16 windows x 500
-// sources = 8000 rows, 374 stations, C = H = 30) one round-1 launch must
-// read x and agg_src (~359 MB each) and mask (~48 MB) and write out
-// (~718 MB): ~1.5 GB against ~23 GFLOP of f32 multiply-adds, i.e. about
-// 15 FLOP/byte, below the f32 ridge (67 TFLOP/s / 3.35 TB/s = 20).
+// What bounds it on this card: bytes, narrowly. At the sweep shape (16
+// windows x 500 sources = 8000 rows, 374 stations, C = H = 30) one round-1
+// launch must read x and agg_src (~359 MB each) and mask (~48 MB) and write
+// out (~718 MB): ~1.5 GB against ~24 GFLOP of f32 multiply-adds, about 16
+// FLOP/byte, just below the f32 FFMA ridge (67 TFLOP/s / 3.35 TB/s = 20).
+// So the kernel has to stream at close to the memory rate and keep the FFMA
+// pipes busy at the same time; neither side has slack to give away.
 //
-// What the design does about it: every intermediate (PReLU(z), the station
-// mean, h1, h2) stays on chip, so device memory sees each input once and
-// the output once. The Pallas kernel keeps the dense (n_sta, n_sta) A_sta
-// resident (560 KB at 374 stations, more than the 227 KB a Hopper block may
-// use); this kernel gathers over the k = 8 station-neighbour lists instead,
-// which is also ~47x fewer multiply-adds than A_sta @ x. One block handles
-// one row: it stages PReLU(z[r]) (374 x 30 f32 = 45 KB), both weight
-// matrices and biases in dynamic shared memory, then one thread per station
-// gathers its k neighbours and runs both small products in f32 registers.
-// Row strides in shared memory are odd so that the per-thread rows fall in
-// different banks. wgmma/TMA and fusing the preceding Dense are later work.
+// Why CUDA cores in f32: the gate against the plain twin is 1e-4 absolute.
+// Single-pass TF32 (10-bit mantissa, K = 64, weights ~0.2) errs by ~1e-3,
+// and the products sit at the ridge, so tensor cores pay only once the
+// kernel is close to its byte bound (split-TF32 mma is later work).
+//
+// Design (one persistent block of 256 threads per SM):
+//  1. Persistent grid. gridDim.x = min(rows, resident blocks); each block
+//     walks rows r = blockIdx.x, r += gridDim.x. W1, W2, b1, b2 are staged
+//     into shared memory once per block, interleaved as one (K, 2*HP)
+//     matrix (HP = H rounded up to 8/16/32, zero-padded) so that one
+//     16-byte load feeds 4 multiply-adds and a warp's weight load is one
+//     contiguous 128 B line. The (nbr, w) table is staged once per block
+//     too, where it fits, two slots to a 16-byte load.
+//  2. The station mean is taken after the product, not before it:
+//     agg @ W1a = sum_k w[i,k] * Y[nbr[i,k]] with Y = PReLU(z[r]) @ W1a
+//     (W1a the station-mean rows of W1). Each row first streams z through
+//     the ring and computes Y (n_sta x HP, the only row-sized buffer; the
+//     z row itself is never held whole), then every station's h1 gathers
+//     its k rows of Y inside the product loop, each lane reading exactly
+//     the 4 columns it owns. The gather is the same count of multiply-adds
+//     as averaging z first, but it needs no station-mean pass between
+//     barriers (a pass that, measured, cost a quarter of the kernel: it is
+//     all shared-memory latency) and no mean tile. k is arbitrary and w = 0
+//     slots add nothing.
+//  3. Chunks of S = 192 stations (128 for H <= 8) -- the z slab, or the x,
+//     agg_src and mask slabs, each one contiguous run in device memory --
+//     are streamed into a double-buffered shared ring with cp.async:
+//     16-byte .cg copies for the aligned body of each run, 4-byte copies
+//     for its ragged ends, the run placed at the same offset within a
+//     16-byte line as in device memory. The copy of the next chunk is in
+//     flight while the current one is computed. Where two buffers do not
+//     fit the ring has one.
+//  4. Register-blocked f32 products. Each thread owns TS = S*HP/(4*NT)
+//     stations (6 at H = 30, 3 at H = 15) x (4 columns of h1 + the same 4
+//     of h2); all lanes of a station group read the same station (a
+//     broadcast; a warp's stations fall in distinct banks), inputs as
+//     float4/float2 as the row width allows, weights as float4: per input
+//     channel two 16-byte weight loads feed 8*TS fmaf.
+//  5. Staged, coalesced output: once a chunk's inputs are consumed its
+//     ring buffer takes the (S, 2H) output tile, which is stored as one
+//     contiguous run (float4 where aligned).
+//
+// What holds it back now (NVIDIA H100 80GB HBM3, 700 W; PERF.md): the
+// CUDA cores, not the bytes -- shared-memory loads and barriers between
+// the phases keep FFMA issue near half of its peak inside the product
+// loops, and streaming alone runs well under the kernel's time.
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
+
+// Measurement only (genie_tpu_torch/ops/bench_fused_round.py builds with
+// it to see what each phase costs; the results are then wrong): bit 1
+// skips the three input segments of the products, bit 2 the gather of Y,
+// bit 4 the products that make Y, bit 8 every chunk copy after the first
+// (the chunks are then computed on stale shared memory).
+#ifndef FUSED_ROUND_SKIP
+#define FUSED_ROUND_SKIP 0
+#endif
+
+constexpr int NT = 256;                 // threads per block
+constexpr long long MAX_SMEM = 232448;  // per-block limit on sm_90
+
+__host__ __device__ __forceinline__ int pad4(long long v) {
+  return (int)((v + 3) & ~3LL);
+}
+
+__host__ __device__ __forceinline__ int hpad(int h) {
+  return h <= 8 ? 8 : (h <= 16 ? 16 : 32);
+}
+
+// Stations per chunk, a multiple of the NT / (hp / 4) station groups; each
+// thread owns TS = S / (NT / (hp / 4)) of them. 192 splits 374 stations
+// into two chunks with 2.7 % padding.
+__host__ __device__ constexpr int chunk_of(int hp) {
+  return hp == 8 ? 128 : 192;
+}
+
+// Widest vector (4, 2 or 1 floats) in which every row of width w starting
+// at `base` is aligned.
+int vec_of(const void* base, int w) {
+  const uintptr_t f = reinterpret_cast<uintptr_t>(base) >> 2;
+  if (w % 4 == 0 && f % 4 == 0) return 4;
+  if (w % 2 == 0 && f % 2 == 0) return 2;
+  return 1;
+}
+
+// Shared-memory layout of one launch, in floats from the start.
+struct Plan {
+  int nbuf, tab;        // ring buffers; neighbour table staged or not
+  int vx, va, vm, vz;   // vector widths of the x/agg_src/mask/z rows
+  int b, t, y, ring, sa, sm, buf, total;
+};
+
+Plan make_plan(int n_sta, int cx, int cz, int m, int k, int h) {
+  Plan p = {};
+  const int hp = hpad(h);
+  const int S = chunk_of(hp);
+  p.b = (cx + cz + m) * 2 * hp;  // weights first, at offset 0
+  p.t = p.b + 2 * hp;
+  // ring buffer: [x run | agg_src run | mask run], or the z run, each run
+  // up to 3 floats into its 16-byte line; once a chunk's products are done
+  // its buffer holds the (S, 2h) output tile
+  p.sa = pad4((long long)S * cx + 4);
+  p.sm = p.sa + pad4((long long)S * cz + 4);
+  p.buf = p.sm + pad4((long long)S * m + 4);
+  if (p.buf < pad4((long long)S * cz + 4)) p.buf = pad4((long long)S * cz + 4);
+  if (p.buf < pad4((long long)S * 2 * h)) p.buf = pad4((long long)S * 2 * h);
+  // first choice: two ring buffers and the neighbour table
+  for (int opt = 0; opt < 4; ++opt) {
+    p.nbuf = opt < 2 ? 2 : 1;
+    p.tab = opt % 2 == 0;
+    p.y = p.t + (p.tab ? pad4(2LL * n_sta * ((k + 1) & ~1)) : 0);
+    p.ring = p.y + n_sta * hp;
+    p.total = p.ring + p.nbuf * p.buf;
+    if ((long long)p.total * 4 <= MAX_SMEM) break;
+  }
+  return p;  // may be over the limit; the wrapper refuses it then
+}
 
 __device__ __forceinline__ float prelu(float v, float a) {
   return fmaxf(v, 0.0f) + a * fminf(v, 0.0f);
 }
 
-template <int HMAX>
-__global__ void __launch_bounds__(512)
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Four consecutive floats from shared memory, in loads of V floats.
+template <int V>
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  if (V == 4) {
+    const float4 t = ld4(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else if (V == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    const float2 b = *reinterpret_cast<const float2*>(p + 2);
+    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+  } else {
+    v[0] = p[0]; v[1] = p[1]; v[2] = p[2]; v[3] = p[3];
+  }
+}
+
+__device__ __forceinline__ void fma4(float (&acc)[4], float a, const float4& w) {
+  acc[0] = fmaf(a, w.x, acc[0]);
+  acc[1] = fmaf(a, w.y, acc[1]);
+  acc[2] = fmaf(a, w.z, acc[2]);
+  acc[3] = fmaf(a, w.w, acc[3]);
+}
+
+__device__ __forceinline__ void copy4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void copy16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Float offset of p within its 16-byte line.
+__device__ __forceinline__ int line_offset(const float* p) {
+  return (int)((reinterpret_cast<uintptr_t>(p) >> 2) & 3);
+}
+
+// Copy the run src[0, n) to dst + line_offset(src) (dst 16-byte aligned),
+// all threads of the block together.
+__device__ __forceinline__ void copy_run(float* dst, const float* src, int n) {
+  const int sh = line_offset(src);
+  float* d = dst + sh;
+  const int head = min((4 - sh) & 3, n);
+  if ((int)threadIdx.x < head) copy4(d + threadIdx.x, src + threadIdx.x);
+  const int nq = (n - head) >> 2;
+  for (int e = threadIdx.x; e < nq; e += NT)
+    copy16(d + head + 4 * e, src + head + 4 * e);
+  for (int e = head + 4 * nq + threadIdx.x; e < n; e += NT)
+    copy4(d + e, src + e);
+}
+
+// One input segment of the products over `len` channels. H1: acc1 += in
+// @ w[:, 0:HP); H2: acc2 += in @ w[:, HP:2HP). V is the vector width the
+// input rows allow; w points at the segment's first weight row, offset to
+// the thread's columns.
+template <int HP, int TS, int V, bool H1, bool H2>
+__device__ __forceinline__ void segment(float (&acc1)[TS][4],
+                                        float (&acc2)[TS][4],
+                                        const float* (&in)[TS],
+                                        const float* w, int len) {
+  int c = 0;
+  for (; c + 4 <= len; c += 4) {
+    float a[TS][4];
+#pragma unroll
+    for (int i = 0; i < TS; ++i) load4<V>(in[i] + c, a[i]);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float4 wa, wb;
+      if (H1) wa = ld4(w + (c + q) * 2 * HP);
+      if (H2) wb = ld4(w + (c + q) * 2 * HP + HP);
+#pragma unroll
+      for (int i = 0; i < TS; ++i) {
+        if (H1) fma4(acc1[i], a[i][q], wa);
+        if (H2) fma4(acc2[i], a[i][q], wb);
+      }
+    }
+  }
+  for (; c < len; ++c) {
+    float4 wa, wb;
+    if (H1) wa = ld4(w + c * 2 * HP);
+    if (H2) wb = ld4(w + c * 2 * HP + HP);
+#pragma unroll
+    for (int i = 0; i < TS; ++i) {
+      if (H1) fma4(acc1[i], in[i][c], wa);
+      if (H2) fma4(acc2[i], in[i][c], wb);
+    }
+  }
+}
+
+// segment<> with the vector width picked at run time
+template <int HP, int TS, bool H1, bool H2>
+__device__ __forceinline__ void segment_v(int v, float (&acc1)[TS][4],
+                                          float (&acc2)[TS][4],
+                                          const float* (&in)[TS],
+                                          const float* w, int len) {
+  if (v == 4)
+    segment<HP, TS, 4, H1, H2>(acc1, acc2, in, w, len);
+  else if (v == 2)
+    segment<HP, TS, 2, H1, H2>(acc1, acc2, in, w, len);
+  else
+    segment<HP, TS, 1, H1, H2>(acc1, acc2, in, w, len);
+}
+
+template <int HP>
+__global__ void __launch_bounds__(NT, 1)
 fused_round_kernel(const float* __restrict__ x, const float* __restrict__ z,
                    const float* __restrict__ agg_src,
                    const float* __restrict__ mask, const int* __restrict__ nbr,
@@ -51,126 +273,252 @@ fused_round_kernel(const float* __restrict__ x, const float* __restrict__ z,
                    const float* __restrict__ b1, const float* __restrict__ w2,
                    const float* __restrict__ b2,
                    const float* __restrict__ slopes, float* __restrict__ out,
-                   int n_sta, int cx, int cz, int m, int k, int h,
-                   int zstride) {
-  extern __shared__ float smem[];
+                   int rows, int n_sta, int cx, int cz, int m, int k, int h,
+                   Plan p) {
+  constexpr int S = chunk_of(HP);
+  constexpr int NG = HP / 4;    // column groups (4 of h1 + the same 4 of h2)
+  constexpr int NSG = NT / NG;  // station groups
+  constexpr int TS = S / NSG;   // stations per thread
+  static_assert(TS * NSG == S, "a chunk must tile the block");
+
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* Wsh = smem;            // (d, 2*HP): W1 in [0, HP), W2 in [HP, 2HP)
+  float* Bsh = smem + p.b;      // (2*HP)
+  int2* tab = p.tab ? reinterpret_cast<int2*>(smem + p.t) : nullptr;
+  float* Ysh = smem + p.y;      // (n_sta, HP): PReLU(z[r]) @ W1a
+  float* ring = smem + p.ring;  // nbuf x buf
+
+  const int tid = threadIdx.x;
+  const float a_sta = __ldg(slopes);
+  const float a_out = __ldg(slopes + 1);
   const int d = cx + cz + m;
-  float* zsh = smem;                          // n_sta * zstride
-  float* agg = zsh + (size_t)n_sta * zstride;  // n_sta * zstride
-  float* W1 = agg + (size_t)n_sta * zstride;   // d * h
-  float* W2 = W1 + d * h;                      // d * h
-  float* B1 = W2 + d * h;                      // h
-  float* B2 = B1 + h;                          // h
 
-  const size_t r = blockIdx.x;
-  const float a_sta = slopes[0];
-  const float a_out = slopes[1];
-
-  // stage PReLU(z[r]) (coalesced: row r is contiguous) and the weights
-  const float* zr = z + r * n_sta * cz;
-  for (int idx = threadIdx.x; idx < n_sta * cz; idx += blockDim.x) {
-    const int i = idx / cz;
-    const int c = idx - i * cz;
-    zsh[i * zstride + c] = prelu(zr[idx], a_sta);
-  }
-  for (int idx = threadIdx.x; idx < d * h; idx += blockDim.x) {
-    W1[idx] = w1[idx];
-    W2[idx] = w2[idx];
-  }
-  for (int idx = threadIdx.x; idx < h; idx += blockDim.x) {
-    B1[idx] = b1[idx];
-    B2[idx] = b2[idx];
-  }
+  // Zero everything once, so that pad columns and the idle lanes of a
+  // partial chunk compute on finite values.
+  for (int e = tid; e < p.total / 4; e += NT)
+    smem4[e] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
+  for (int e = tid; e < d * 2 * HP; e += NT) {
+    const int row = e / (2 * HP);
+    const int col = e % (2 * HP);
+    const int j = col % HP;
+    if (j < h) Wsh[e] = __ldg((col < HP ? w1 : w2) + row * h + j);
+  }
+  for (int j = tid; j < h; j += NT) {
+    Bsh[j] = __ldg(b1 + j);
+    Bsh[HP + j] = __ldg(b2 + j);
+  }
+  if (tab) {  // (Y row offset, w), k rounded up to even; a padded slot
+              // (w = 0) points at row 0
+    const int kp = (k + 1) & ~1;
+    for (int e = tid; e < n_sta * kp; e += NT) {
+      const int i = e / kp;
+      const int kk = e - i * kp;
+      const float wk = kk < k ? __ldg(wts + i * k + kk) : 0.0f;
+      tab[e] = make_int2(wk != 0.0f ? __ldg(nbr + i * k + kk) * HP : 0,
+                         __float_as_int(wk));
+    }
+  }
 
-  for (int i = threadIdx.x; i < n_sta; i += blockDim.x) {
-    // station-axis weighted mean over the k neighbour list
-    float* ag = agg + i * zstride;
-    for (int c = 0; c < cz; ++c) ag[c] = 0.0f;
-    for (int kk = 0; kk < k; ++kk) {
-      const float wk = wts[i * k + kk];
-      if (wk == 0.0f) continue;  // padded slot
-      const float* zj = zsh + nbr[i * k + kk] * zstride;
-      for (int c = 0; c < cz; ++c) ag[c] = fmaf(wk, zj[c], ag[c]);
+  // Work items: per row, nch chunks of z (phase 0: Y) and then nch chunks
+  // of x/agg_src/mask (phase 1: the products).
+  const int nch = (n_sta + S - 1) / S;
+  auto load_item = [&](long long r, int ph, int j, float* buf) {
+    const long long g0 = r * n_sta + (long long)j * S;
+    const int ns = min(S, n_sta - j * S);
+    if (ph == 0) {
+      copy_run(buf, z + g0 * cz, ns * cz);
+    } else {
+      copy_run(buf, x + g0 * cx, ns * cx);
+      copy_run(buf + p.sa, agg_src + g0 * cz, ns * cz);
+      copy_run(buf + p.sm, mask + g0 * m, ns * m);
+    }
+  };
+
+  const int g = tid % NG;
+  const int sg = tid / NG;
+  long long r = blockIdx.x;
+  int ph = 0, j = 0, buf = 0;
+  load_item(r, ph, j, ring);
+  commit();
+
+  for (;;) {
+    long long rn = r;
+    int phn = ph, jn = j + 1;
+    if (jn == nch) {
+      jn = 0;
+      phn = ph ^ 1;
+      if (phn == 0) rn = r + gridDim.x;
+    }
+    const bool has_next = rn < rows;
+    float* cur = ring + buf * p.buf;
+    float* nxt = ring + ((buf + 1) % p.nbuf) * p.buf;
+    const int s0 = j * S;
+    const int ns = min(S, n_sta - s0);
+    const long long g0 = r * n_sta + s0;
+
+    wait_all();
+    __syncthreads();
+    if (p.nbuf == 2 && has_next && !(FUSED_ROUND_SKIP & 8)) {
+      // into the buffer the last item used
+      load_item(rn, phn, jn, nxt);
+      commit();
     }
 
-    float h1[HMAX], h2[HMAX];
+    if (ph == 0) {
+      // Y[s0 + s] = PReLU(z[r, s0 + s]) @ W1a
+      float* zb = cur + line_offset(z + g0 * cz);
+      for (int e = tid; e < ns * cz; e += NT) zb[e] = prelu(zb[e], a_sta);
+      __syncthreads();
+      float acc[TS][4];
 #pragma unroll
-    for (int j = 0; j < HMAX; ++j) {
-      h1[j] = j < h ? B1[j] : 0.0f;
-      h2[j] = j < h ? B2[j] : 0.0f;
-    }
-    const size_t ri = r * n_sta + i;
-    const float* xr = x + ri * cx;
-    for (int c = 0; c < cx; ++c) {
-      const float v = xr[c];
-      const float* w1r = W1 + c * h;
-      const float* w2r = W2 + c * h;
+      for (int i = 0; i < TS; ++i)
 #pragma unroll
-      for (int j = 0; j < HMAX; ++j) {
-        if (j < h) {
-          h1[j] = fmaf(v, w1r[j], h1[j]);
-          h2[j] = fmaf(v, w2r[j], h2[j]);
+        for (int q = 0; q < 4; ++q) acc[i][q] = 0.0f;
+      const float* in[TS];
+#pragma unroll
+      for (int i = 0; i < TS; ++i) in[i] = zb + (sg + NSG * i) * cz;
+      if (!(FUSED_ROUND_SKIP & 4))
+        segment_v<HP, TS, true, false>(p.vz, acc, acc, in,
+                                       Wsh + cx * 2 * HP + 4 * g, cz);
+#pragma unroll
+      for (int i = 0; i < TS; ++i) {
+        const int s = sg + NSG * i;
+        if (s < ns)
+          *reinterpret_cast<float4*>(Ysh + (s0 + s) * HP + 4 * g) =
+              make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      }
+      if (p.nbuf == 1 && has_next) {
+        __syncthreads();  // the only buffer is free now
+        load_item(rn, phn, jn, nxt);
+        commit();
+      }
+    } else {
+      float acc1[TS][4], acc2[TS][4];
+#pragma unroll
+      for (int i = 0; i < TS; ++i) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          acc1[i][q] = Bsh[4 * g + q];
+          acc2[i][q] = Bsh[HP + 4 * g + q];
         }
       }
-    }
-    const float* sr = agg_src + ri * cz;
-    for (int c = 0; c < cz; ++c) {
-      const float va = ag[c];
-      const float vs = sr[c];
-      const float* w1r = W1 + (cx + c) * h;
-      const float* w2r = W2 + (cx + c) * h;
+      if (!(FUSED_ROUND_SKIP & 1)) {
+        const float* wg = Wsh + 4 * g;
+        const float* xb = cur + line_offset(x + g0 * cx);
+        const float* ab = cur + p.sa + line_offset(agg_src + g0 * cz);
+        const float* mb = cur + p.sm + line_offset(mask + g0 * m);
+        const float* in[TS];
 #pragma unroll
-      for (int j = 0; j < HMAX; ++j) {
-        if (j < h) {
-          h1[j] = fmaf(va, w1r[j], h1[j]);
-          h2[j] = fmaf(vs, w2r[j], h2[j]);
+        for (int i = 0; i < TS; ++i) in[i] = xb + (sg + NSG * i) * cx;
+        segment_v<HP, TS, true, true>(p.vx, acc1, acc2, in, wg, cx);
+#pragma unroll
+        for (int i = 0; i < TS; ++i) in[i] = ab + (sg + NSG * i) * cz;
+        segment_v<HP, TS, false, true>(p.va, acc1, acc2, in,
+                                       wg + cx * 2 * HP, cz);
+#pragma unroll
+        for (int i = 0; i < TS; ++i) in[i] = mb + (sg + NSG * i) * m;
+        segment_v<HP, TS, true, true>(p.vm, acc1, acc2, in,
+                                      wg + (cx + cz) * 2 * HP, m);
+      }
+      if (!(FUSED_ROUND_SKIP & 2)) {
+        // h1 += sum_k w * Y[nbr]: each lane gathers its own 4 columns
+        int st[TS];
+#pragma unroll
+        for (int i = 0; i < TS; ++i) st[i] = min(s0 + sg + NSG * i, n_sta - 1);
+        const float* yg = Ysh + 4 * g;
+        if (tab) {  // two slots per 16-byte table load
+          const int kp = (k + 1) & ~1;
+          for (int kk = 0; kk < kp; kk += 2) {
+#pragma unroll
+            for (int i = 0; i < TS; ++i) {
+              const int4 t = *reinterpret_cast<const int4*>(tab + st[i] * kp + kk);
+              fma4(acc1[i], __int_as_float(t.y), ld4(yg + t.x));
+              fma4(acc1[i], __int_as_float(t.w), ld4(yg + t.z));
+            }
+          }
+        } else {
+          for (int kk = 0; kk < k; ++kk) {
+#pragma unroll
+            for (int i = 0; i < TS; ++i) {
+              const float wk = __ldg(wts + st[i] * k + kk);
+              const int off = wk != 0.0f ? __ldg(nbr + st[i] * k + kk) * HP : 0;
+              fma4(acc1[i], wk, ld4(yg + off));
+            }
+          }
         }
       }
-    }
-    const float* mr = mask + ri * m;
-    for (int c = 0; c < m; ++c) {
-      const float v = mr[c];
-      const float* w1r = W1 + (cx + cz + c) * h;
-      const float* w2r = W2 + (cx + cz + c) * h;
+      __syncthreads();  // the chunk's inputs are consumed: its buffer
+      float* stg = cur;  // now holds the (S, 2h) output tile
 #pragma unroll
-      for (int j = 0; j < HMAX; ++j) {
-        if (j < h) {
-          h1[j] = fmaf(v, w1r[j], h1[j]);
-          h2[j] = fmaf(v, w2r[j], h2[j]);
+      for (int i = 0; i < TS; ++i) {
+        const int s = sg + NSG * i;
+        if (s >= ns) continue;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int c = 4 * g + q;
+          if (c < h) {
+            stg[s * 2 * h + c] = prelu(acc1[i][q], a_out);
+            stg[s * 2 * h + h + c] = prelu(acc2[i][q], a_out);
+          }
         }
       }
-    }
-    float* o = out + ri * 2 * h;
-#pragma unroll
-    for (int j = 0; j < HMAX; ++j) {
-      if (j < h) {
-        o[j] = prelu(h1[j], a_out);
-        o[h + j] = prelu(h2[j], a_out);
+      __syncthreads();
+      // the chunk's output rows are one contiguous run of `out`
+      float* o = out + g0 * 2 * h;
+      const int n = ns * 2 * h;
+      if (line_offset(o) == 0) {
+        float4* o4 = reinterpret_cast<float4*>(o);
+        const float4* s4 = reinterpret_cast<const float4*>(stg);
+        for (int e = tid; e < n / 4; e += NT) o4[e] = s4[e];
+        for (int e = (n & ~3) + tid; e < n; e += NT) o[e] = stg[e];
+      } else {
+        for (int e = tid; e < n; e += NT) o[e] = stg[e];
+      }
+      if (p.nbuf == 1 && has_next) {  // the only buffer is free again
+        __syncthreads();
+        load_item(rn, phn, jn, nxt);
+        commit();
       }
     }
+
+    if (!has_next) break;
+    r = rn;
+    ph = phn;
+    j = jn;
+    buf = (buf + 1) % p.nbuf;
   }
 }
 
-template <int HMAX>
+template <int HP>
 cudaError_t launch(const float* x, const float* z, const float* agg_src,
                    const float* mask, const int* nbr, const float* wts,
                    const float* w1, const float* b1, const float* w2,
                    const float* b2, const float* slopes, float* out, int rows,
                    int n_sta, int cx, int cz, int m, int k, int h,
                    cudaStream_t stream) {
-  const int zstride = cz | 1;
-  const size_t smem = sizeof(float) *
-      (2 * (size_t)n_sta * zstride + 2 * (size_t)(cx + cz + m) * h + 2 * h);
+  Plan p = make_plan(n_sta, cx, cz, m, k, h);
+  p.vx = vec_of(x, cx);
+  p.va = vec_of(agg_src, cz);
+  p.vm = vec_of(mask, m);
+  p.vz = vec_of(z, cz);
+  const size_t smem = (size_t)p.total * sizeof(float);
+  auto kern = fused_round_kernel<HP>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_round_kernel<HMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  int threads = ((n_sta + 31) / 32) * 32;
-  if (threads > 512) threads = 512;
-  fused_round_kernel<HMAX><<<rows, threads, smem, stream>>>(
-      x, z, agg_src, mask, nbr, wts, w1, b1, w2, b2, slopes, out, n_sta, cx,
-      cz, m, k, h, zstride);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, NT, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int grid = rows < per_sm * sms ? rows : per_sm * sms;
+  kern<<<grid, NT, smem, stream>>>(x, z, agg_src, mask, nbr, wts, w1, b1, w2,
+                                   b2, slopes, out, rows, n_sta, cx, cz, m, k,
+                                   h, p);
   return cudaGetLastError();
 }
 
@@ -178,12 +526,11 @@ cudaError_t launch(const float* x, const float* z, const float* agg_src,
 
 extern "C" {
 
-// Shared memory the launch needs, in bytes (the wrapper checks it against
-// the card's per-block limit before launching).
+// Least shared memory a launch needs, in bytes (the wrapper checks it
+// against the card's per-block limit before launching); the neighbour
+// table is staged beside it only where it fits.
 long long fused_round_smem_bytes(int n_sta, int cx, int cz, int m, int h) {
-  const int zstride = cz | 1;
-  return (long long)sizeof(float) *
-      (2LL * n_sta * zstride + 2LL * (cx + cz + m) * h + 2LL * h);
+  return make_plan(n_sta, cx, cz, m, 0, h).total * (long long)sizeof(float);
 }
 
 // Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok).
@@ -196,6 +543,9 @@ int fused_round_launch(const float* x, const float* z, const float* agg_src,
                        int h, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows <= 0 || n_sta <= 0) return (int)cudaSuccess;
+  if (h <= 8)
+    return (int)launch<8>(x, z, agg_src, mask, nbr, wts, w1, b1, w2, b2,
+                          slopes, out, rows, n_sta, cx, cz, m, k, h, s);
   if (h <= 16)
     return (int)launch<16>(x, z, agg_src, mask, nbr, wts, w1, b1, w2, b2,
                            slopes, out, rows, n_sta, cx, cz, m, k, h, s);

@@ -2,9 +2,11 @@
 
 Each ``genie_tpu_torch/csrc/<name>.cu`` exposes a plain C interface and is
 compiled for Hopper (``-gencode arch=compute_90a,code=sm_90a``) into
-``genie_tpu_torch/_build/lib<name>-<hash>.so`` at first use; the hash is of
-the source, so an edited source is rebuilt. Nothing here runs at import
-time, and nothing depends on ``ninja`` or ``torch.utils.cpp_extension``.
+``genie_tpu_torch/_build/lib<name>-<hash>.so`` at first use; the hash
+covers the source, every other file under ``csrc/`` (the headers it may
+include) and the flags, so an edited source or header is rebuilt. Nothing
+here runs at import time, and nothing depends on ``ninja`` or
+``torch.utils.cpp_extension``.
 A build that fails raises with the compiler's output.
 """
 
@@ -37,9 +39,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(f"{name}.cu\0{' '.join(NVCC_FLAGS)}\0".encode())
+    for f in sorted(p for p in SRC_DIR.rglob("*") if p.is_file()):
+        h.update(f"{f.relative_to(SRC_DIR).as_posix()}\0".encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

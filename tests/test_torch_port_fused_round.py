@@ -186,27 +186,83 @@ def test_kernel_wrapper_refuses_unsupported_devices():
                     torch.empty(2, device="meta"), torch.empty(2, device="meta"))
 
 
+@pytest.mark.parametrize("edit", ["header", "new_header", "source"])
+def test_build_cache_key_covers_headers(tmp_path, monkeypatch, edit):
+    """The library name hashes every file under csrc/, so editing a header
+    that a kernel includes (or adding one) rebuilds it; no nvcc needed."""
+    from genie_tpu_torch.ops import _build
+
+    (tmp_path / "k.cu").write_text('#include "k.cuh"\nint f() { return K; }\n')
+    (tmp_path / "k.cuh").write_text("#define K 1\n")
+    monkeypatch.setattr(_build, "SRC_DIR", tmp_path)
+    before = _build.library_path("k")
+    assert _build.library_path("k") == before  # stable while nothing changes
+    if edit == "header":
+        (tmp_path / "k.cuh").write_text("#define K 2\n")
+    elif edit == "new_header":
+        (tmp_path / "extra.cuh").write_text("#define J 0\n")
+    else:
+        (tmp_path / "k.cu").write_text('#include "k.cuh"\nint f() { return K + 1; }\n')
+    after = _build.library_path("k")
+    assert after != before
+    assert after.parent == before.parent and after.name.startswith("libk-")
+
+
+# n_sta, k, leading dims, float offset of every input's storage. They reach
+# the kernel's edges: a ragged last chunk of 192 (or 128) stations (37, 129,
+# 374, 600), one station, one row, rows not a multiple of the persistent
+# grid (133 > 132 SMs; 1000), k = 16 with padded (w = 0) slots, inputs that
+# start off a 16-byte line (offset 1: 4-byte copies and scalar loads), and
+# the shared-memory fallbacks (600: neighbour table read from device memory;
+# 1000: also a one-buffer ring).
+_CUDA_CASES = [(37, 8, (3, 20), 0), (600, 5, (3, 20), 0), (374, 8, (1,), 0),
+               (374, 8, (133,), 0), (129, 16, (1000,), 0), (1, 1, (5,), 0),
+               (256, 8, (7, 3), 0), (374, 8, (9,), 1), (1000, 8, (2, 3), 0)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_sta,k", [(37, 8), (600, 5)])
-def test_cuda_kernel_matches_plain(n_sta, k):
+@pytest.mark.parametrize("n_sta,k,lead,offset", _CUDA_CASES,
+                         ids=[f"sta{c[0]}-k{c[1]}-rows{np.prod(c[2])}-off{c[3]}"
+                              for c in _CUDA_CASES])
+def test_cuda_kernel_matches_plain(n_sta, k, lead, offset):
     """Needs the card: the hand-written kernel against its plain twin for
-    the three round forms plus a narrow H = 8 form, f32 with TF32 off;
-    600 stations exceed one thread per station (512 per block)."""
+    the three round forms plus narrow H = 8 forms (M = 4 and the 5-wide
+    mask), f32 with TF32 off."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     rng = np.random.default_rng(0)
-    nbr, valid = _knn_table(rng, n_sta, k)
+    if n_sta > k:
+        nbr, valid = _knn_table(rng, n_sta, k)
+    else:
+        nbr, valid = np.zeros((n_sta, k), np.int32), np.ones((n_sta, k), bool)
+    if k == 16:
+        valid[:, 12:] = False  # padded slots, as dense_to_neighbours makes them
     nbr = torch.from_numpy(nbr).to(dev)
     w = aggregation_weights(nbr, torch.from_numpy(valid).to(dev))
+
+    def alloc(shape, fill):
+        n = int(np.prod(shape))
+        flat = torch.empty(n + offset, device=dev)
+        t = flat[offset:].view(shape)
+        t.copy_(fill(shape))
+        return t
+
+    def randn(shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def bits(shape):
+        return (torch.rand(shape, generator=g, device=dev) > 0.5).float()
+
     for cx, cz, m, h, same in ((30, 30, 4, 30, True), (60, 30, 4, 15, False),
-                               (30, 30, 5, 30, False), (8, 8, 4, 8, True)):
-        x = torch.randn((3, 20, n_sta, cx), generator=g, device=dev)
-        z = x if same else torch.randn((3, 20, n_sta, cz), generator=g, device=dev)
-        agg = torch.randn((3, 20, n_sta, cz), generator=g, device=dev)
-        mask = (torch.rand((3, 20, n_sta, m), generator=g, device=dev) > 0.5).float()
+                               (30, 30, 5, 30, False), (8, 8, 4, 8, True),
+                               (30, 30, 5, 8, False)):
+        x = alloc((*lead, n_sta, cx), randn)
+        z = x if same else alloc((*lead, n_sta, cz), randn)
+        agg = alloc((*lead, n_sta, cz), randn)
+        mask = alloc((*lead, n_sta, m), bits)
         d = cx + cz + m
         ws = [torch.randn(s, generator=g, device=dev) * 0.2
               for s in ((h, d), (h,), (h, d), (h,))]
@@ -216,4 +272,4 @@ def test_cuda_kernel_matches_plain(n_sta, k):
         torch.cuda.synchronize()
         assert fused_round.launches == n0 + 1
         want = fused_round_plain(*args)
-        assert float((got - want).abs().max()) <= 1e-4
+        assert float((got - want).abs().max()) <= 1e-4, (cx, cz, m, h)
