@@ -54,8 +54,8 @@
 //     16-byte .cg copies for the aligned body of each run, 4-byte copies
 //     for its ragged ends, the run placed at the same offset within a
 //     16-byte line as in device memory. The copy of the next chunk is in
-//     flight while the current one is computed. Where two buffers do not
-//     fit the ring has one.
+//     flight while the current one is computed. A shape whose two buffers
+//     do not fit in shared memory is refused.
 //  4. Register-blocked f32 products. Each thread owns TS = S*HP/(4*NT)
 //     stations (6 at H = 30, 3 at H = 15) x (4 columns of h1 + the same 4
 //     of h2); all lanes of a station group read the same station (a
@@ -74,16 +74,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include <map>
+#include <mutex>
+#include <utility>
 
-// Measurement only (genie_tpu_torch/ops/bench_fused_round.py builds with
-// it to see what each phase costs; the results are then wrong): bit 1
-// skips the three input segments of the products, bit 2 the gather of Y,
-// bit 4 the products that make Y, bit 8 every chunk copy after the first
-// (the chunks are then computed on stale shared memory).
-#ifndef FUSED_ROUND_SKIP
-#define FUSED_ROUND_SKIP 0
-#endif
+namespace {
 
 constexpr int NT = 256;                 // threads per block
 constexpr long long MAX_SMEM = 232448;  // per-block limit on sm_90
@@ -114,7 +109,7 @@ int vec_of(const void* base, int w) {
 
 // Shared-memory layout of one launch, in floats from the start.
 struct Plan {
-  int nbuf, tab;        // ring buffers; neighbour table staged or not
+  int tab;              // neighbour table staged in shared memory or not
   int vx, va, vm, vz;   // vector widths of the x/agg_src/mask/z rows
   int b, t, y, ring, sa, sm, buf, total;
 };
@@ -133,14 +128,12 @@ Plan make_plan(int n_sta, int cx, int cz, int m, int k, int h) {
   p.buf = p.sm + pad4((long long)S * m + 4);
   if (p.buf < pad4((long long)S * cz + 4)) p.buf = pad4((long long)S * cz + 4);
   if (p.buf < pad4((long long)S * 2 * h)) p.buf = pad4((long long)S * 2 * h);
-  // first choice: two ring buffers and the neighbour table
-  for (int opt = 0; opt < 4; ++opt) {
-    p.nbuf = opt < 2 ? 2 : 1;
-    p.tab = opt % 2 == 0;
+  // the neighbour table where it fits, else read from device memory
+  for (p.tab = 1;; p.tab = 0) {
     p.y = p.t + (p.tab ? pad4(2LL * n_sta * ((k + 1) & ~1)) : 0);
     p.ring = p.y + n_sta * hp;
-    p.total = p.ring + p.nbuf * p.buf;
-    if ((long long)p.total * 4 <= MAX_SMEM) break;
+    p.total = p.ring + 2 * p.buf;
+    if ((long long)p.total * 4 <= MAX_SMEM || !p.tab) break;
   }
   return p;  // may be over the limit; the wrapper refuses it then
 }
@@ -287,7 +280,7 @@ fused_round_kernel(const float* __restrict__ x, const float* __restrict__ z,
   float* Bsh = smem + p.b;      // (2*HP)
   int2* tab = p.tab ? reinterpret_cast<int2*>(smem + p.t) : nullptr;
   float* Ysh = smem + p.y;      // (n_sta, HP): PReLU(z[r]) @ W1a
-  float* ring = smem + p.ring;  // nbuf x buf
+  float* ring = smem + p.ring;  // 2 x buf
 
   const int tid = threadIdx.x;
   const float a_sta = __ldg(slopes);
@@ -353,14 +346,14 @@ fused_round_kernel(const float* __restrict__ x, const float* __restrict__ z,
     }
     const bool has_next = rn < rows;
     float* cur = ring + buf * p.buf;
-    float* nxt = ring + ((buf + 1) % p.nbuf) * p.buf;
+    float* nxt = ring + (buf ^ 1) * p.buf;
     const int s0 = j * S;
     const int ns = min(S, n_sta - s0);
     const long long g0 = r * n_sta + s0;
 
     wait_all();
     __syncthreads();
-    if (p.nbuf == 2 && has_next && !(FUSED_ROUND_SKIP & 8)) {
+    if (has_next) {
       // into the buffer the last item used
       load_item(rn, phn, jn, nxt);
       commit();
@@ -379,20 +372,14 @@ fused_round_kernel(const float* __restrict__ x, const float* __restrict__ z,
       const float* in[TS];
 #pragma unroll
       for (int i = 0; i < TS; ++i) in[i] = zb + (sg + NSG * i) * cz;
-      if (!(FUSED_ROUND_SKIP & 4))
-        segment_v<HP, TS, true, false>(p.vz, acc, acc, in,
-                                       Wsh + cx * 2 * HP + 4 * g, cz);
+      segment_v<HP, TS, true, false>(p.vz, acc, acc, in,
+                                     Wsh + cx * 2 * HP + 4 * g, cz);
 #pragma unroll
       for (int i = 0; i < TS; ++i) {
         const int s = sg + NSG * i;
         if (s < ns)
           *reinterpret_cast<float4*>(Ysh + (s0 + s) * HP + 4 * g) =
               make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-      }
-      if (p.nbuf == 1 && has_next) {
-        __syncthreads();  // the only buffer is free now
-        load_item(rn, phn, jn, nxt);
-        commit();
       }
     } else {
       float acc1[TS][4], acc2[TS][4];
@@ -404,48 +391,44 @@ fused_round_kernel(const float* __restrict__ x, const float* __restrict__ z,
           acc2[i][q] = Bsh[HP + 4 * g + q];
         }
       }
-      if (!(FUSED_ROUND_SKIP & 1)) {
-        const float* wg = Wsh + 4 * g;
-        const float* xb = cur + line_offset(x + g0 * cx);
-        const float* ab = cur + p.sa + line_offset(agg_src + g0 * cz);
-        const float* mb = cur + p.sm + line_offset(mask + g0 * m);
-        const float* in[TS];
+      const float* wg = Wsh + 4 * g;
+      const float* xb = cur + line_offset(x + g0 * cx);
+      const float* ab = cur + p.sa + line_offset(agg_src + g0 * cz);
+      const float* mb = cur + p.sm + line_offset(mask + g0 * m);
+      const float* in[TS];
 #pragma unroll
-        for (int i = 0; i < TS; ++i) in[i] = xb + (sg + NSG * i) * cx;
-        segment_v<HP, TS, true, true>(p.vx, acc1, acc2, in, wg, cx);
+      for (int i = 0; i < TS; ++i) in[i] = xb + (sg + NSG * i) * cx;
+      segment_v<HP, TS, true, true>(p.vx, acc1, acc2, in, wg, cx);
 #pragma unroll
-        for (int i = 0; i < TS; ++i) in[i] = ab + (sg + NSG * i) * cz;
-        segment_v<HP, TS, false, true>(p.va, acc1, acc2, in,
-                                       wg + cx * 2 * HP, cz);
+      for (int i = 0; i < TS; ++i) in[i] = ab + (sg + NSG * i) * cz;
+      segment_v<HP, TS, false, true>(p.va, acc1, acc2, in,
+                                     wg + cx * 2 * HP, cz);
 #pragma unroll
-        for (int i = 0; i < TS; ++i) in[i] = mb + (sg + NSG * i) * m;
-        segment_v<HP, TS, true, true>(p.vm, acc1, acc2, in,
-                                      wg + (cx + cz) * 2 * HP, m);
-      }
-      if (!(FUSED_ROUND_SKIP & 2)) {
-        // h1 += sum_k w * Y[nbr]: each lane gathers its own 4 columns
-        int st[TS];
+      for (int i = 0; i < TS; ++i) in[i] = mb + (sg + NSG * i) * m;
+      segment_v<HP, TS, true, true>(p.vm, acc1, acc2, in,
+                                    wg + (cx + cz) * 2 * HP, m);
+      // h1 += sum_k w * Y[nbr]: each lane gathers its own 4 columns
+      int st[TS];
 #pragma unroll
-        for (int i = 0; i < TS; ++i) st[i] = min(s0 + sg + NSG * i, n_sta - 1);
-        const float* yg = Ysh + 4 * g;
-        if (tab) {  // two slots per 16-byte table load
-          const int kp = (k + 1) & ~1;
-          for (int kk = 0; kk < kp; kk += 2) {
+      for (int i = 0; i < TS; ++i) st[i] = min(s0 + sg + NSG * i, n_sta - 1);
+      const float* yg = Ysh + 4 * g;
+      if (tab) {  // two slots per 16-byte table load
+        const int kp = (k + 1) & ~1;
+        for (int kk = 0; kk < kp; kk += 2) {
 #pragma unroll
-            for (int i = 0; i < TS; ++i) {
-              const int4 t = *reinterpret_cast<const int4*>(tab + st[i] * kp + kk);
-              fma4(acc1[i], __int_as_float(t.y), ld4(yg + t.x));
-              fma4(acc1[i], __int_as_float(t.w), ld4(yg + t.z));
-            }
+          for (int i = 0; i < TS; ++i) {
+            const int4 t = *reinterpret_cast<const int4*>(tab + st[i] * kp + kk);
+            fma4(acc1[i], __int_as_float(t.y), ld4(yg + t.x));
+            fma4(acc1[i], __int_as_float(t.w), ld4(yg + t.z));
           }
-        } else {
-          for (int kk = 0; kk < k; ++kk) {
+        }
+      } else {
+        for (int kk = 0; kk < k; ++kk) {
 #pragma unroll
-            for (int i = 0; i < TS; ++i) {
-              const float wk = __ldg(wts + st[i] * k + kk);
-              const int off = wk != 0.0f ? __ldg(nbr + st[i] * k + kk) * HP : 0;
-              fma4(acc1[i], wk, ld4(yg + off));
-            }
+          for (int i = 0; i < TS; ++i) {
+            const float wk = __ldg(wts + st[i] * k + kk);
+            const int off = wk != 0.0f ? __ldg(nbr + st[i] * k + kk) * HP : 0;
+            fma4(acc1[i], wk, ld4(yg + off));
           }
         }
       }
@@ -476,19 +459,51 @@ fused_round_kernel(const float* __restrict__ x, const float* __restrict__ z,
       } else {
         for (int e = tid; e < n; e += NT) o[e] = stg[e];
       }
-      if (p.nbuf == 1 && has_next) {  // the only buffer is free again
-        __syncthreads();
-        load_item(rn, phn, jn, nxt);
-        commit();
-      }
     }
 
     if (!has_next) break;
     r = rn;
     ph = phn;
     j = jn;
-    buf = (buf + 1) % p.nbuf;
+    buf ^= 1;
   }
+}
+
+// Blocks of fused_round_kernel<HP> that the current device holds at once
+// with `smem` bytes of shared memory each. The SM count and the occupancy
+// are fixed per (device, smem), so they are queried once and kept; the
+// shared-memory attribute is raised only when a launch needs more than any
+// before it on that device.
+template <int HP>
+cudaError_t resident_blocks(size_t smem, int* blocks) {
+  static std::mutex mu;
+  static std::map<std::pair<int, size_t>, int> known;
+  static std::map<int, size_t> attr;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = known.find({dev, smem});
+  if (it != known.end()) {
+    *blocks = it->second;
+    return cudaSuccess;
+  }
+  auto kern = fused_round_kernel<HP>;
+  size_t& raised = attr[dev];
+  if (smem > raised) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    raised = smem;
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, NT, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *blocks = known[{dev, smem}] = per_sm * sms;
+  return cudaSuccess;
 }
 
 template <int HP>
@@ -504,21 +519,13 @@ cudaError_t launch(const float* x, const float* z, const float* agg_src,
   p.vm = vec_of(mask, m);
   p.vz = vec_of(z, cz);
   const size_t smem = (size_t)p.total * sizeof(float);
-  auto kern = fused_round_kernel<HP>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  int resident = 0;
+  const cudaError_t err = resident_blocks<HP>(smem, &resident);
   if (err != cudaSuccess) return err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, NT, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const int grid = rows < per_sm * sms ? rows : per_sm * sms;
-  kern<<<grid, NT, smem, stream>>>(x, z, agg_src, mask, nbr, wts, w1, b1, w2,
-                                   b2, slopes, out, rows, n_sta, cx, cz, m, k,
-                                   h, p);
+  const int grid = rows < resident ? rows : resident;
+  fused_round_kernel<HP><<<grid, NT, smem, stream>>>(x, z, agg_src, mask, nbr, wts, w1, b1, w2,
+                                                     b2, slopes, out, rows, n_sta,
+                                                     cx, cz, m, k, h, p);
   return cudaGetLastError();
 }
 

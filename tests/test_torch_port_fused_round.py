@@ -213,11 +213,11 @@ def test_build_cache_key_covers_headers(tmp_path, monkeypatch, edit):
 # 374, 600), one station, one row, rows not a multiple of the persistent
 # grid (133 > 132 SMs; 1000), k = 16 with padded (w = 0) slots, inputs that
 # start off a 16-byte line (offset 1: 4-byte copies and scalar loads), and
-# the shared-memory fallbacks (600: neighbour table read from device memory;
-# 1000: also a one-buffer ring).
+# the shared-memory fallback (600: the round-2 form reads its neighbour table
+# from device memory).
 _CUDA_CASES = [(37, 8, (3, 20), 0), (600, 5, (3, 20), 0), (374, 8, (1,), 0),
                (374, 8, (133,), 0), (129, 16, (1000,), 0), (1, 1, (5,), 0),
-               (256, 8, (7, 3), 0), (374, 8, (9,), 1), (1000, 8, (2, 3), 0)]
+               (256, 8, (7, 3), 0), (374, 8, (9,), 1)]
 
 
 @pytest.mark.cuda
@@ -273,3 +273,25 @@ def test_cuda_kernel_matches_plain(n_sta, k, lead, offset):
         assert fused_round.launches == n0 + 1
         want = fused_round_plain(*args)
         assert float((got - want).abs().max()) <= 1e-4, (cx, cz, m, h)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_refuses_shapes_over_shared_memory():
+    """Needs the card: a station count whose Y row and two ring buffers do
+    not fit in a block's shared memory (over about 900 at H = 30) is refused
+    before any launch, not run on a smaller plan."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    dev = torch.device("cuda")
+    n_sta, k, c, m, h = 1000, 8, 30, 4, 30
+    x = torch.zeros((2, n_sta, c), device=dev)
+    mask = torch.zeros((2, n_sta, m), device=dev)
+    nbr = torch.zeros((n_sta, k), dtype=torch.int32, device=dev)
+    w = torch.full((n_sta, k), 1.0 / k, device=dev)
+    wt = torch.zeros((h, 2 * c + m), device=dev)
+    b = torch.zeros(h, device=dev)
+    n0 = fused_round.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_round(x, x, x, mask, nbr, w, wt, b, wt, b,
+                    torch.tensor([0.25, 0.1], device=dev))
+    assert fused_round.launches == n0
