@@ -24,11 +24,29 @@ Phases (any failure exits non-zero):
      picks (planted events plus false picks), with the kernel launch count
      set to 0 just before each call, and check the catalog; one sweep window
      is also checked against the plain CPU path; a third request runs
-     under ``torch.profiler`` for device time by kernel.
+     under ``torch.profiler`` for device time by kernel;
+  5. ``[pinn]``: the travel-time PINN of ``Grids/pinn_nc.pkl`` on the card
+     against the same module on the CPU, 4096 sources in the grid box × the
+     374 stations, max |Δt| ≤ 1e-3 s, and its time per call;
+  6. ``[production]``: run6's serving configuration, as
+     ``scripts/nc_process.py --mag-model --corrections`` builds it: grid
+     tables from the PINN shifted by the calibrated corrections of
+     ``run6/corrections_nc.npz``, the corrected PINN for association and
+     location, the magnitude model of ``run6/mag_model_nc.pkl`` with its
+     magnitude → distance QC; one more pipeline without a query grid packs
+     its 10,000 nodes by k-means on the card. Six planted events (picks
+     timed by the corrected PINN, magnitudes U[2.2, 3.5], amplitudes from
+     the magnitude model plus noise) go through ``process(pick_amp=…)``
+     twice, then once more under the profiler; every planted event must be
+     located within 5 km and 0.5 s with |ΔM| ≤ 0.25;
+  7. ``[locate]``: one ``locate_sources_batched`` call through the
+     corrected PINN at the pipeline's limits, 256 events × 48 picks,
+     popsize 128, 150 iterations: its time and peak memory.
 
 It prints per-stage times, event counts, launches, peak memory, the card's
 name and power limit, a JSON line describing every kernel, and as its last
-line ``{"ok": true, "device": {...}}``. It imports nothing of JAX.
+line ``{"ok": true, "device": {...}}``. It imports nothing of JAX and needs
+no h5py.
 """
 
 from __future__ import annotations
@@ -45,6 +63,9 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 RUN6 = ROOT / "projects" / "NC_EHZ" / "run6"
 GRIDS = ROOT / "projects" / "NC_EHZ" / "Grids"
+PINN = GRIDS / "pinn_nc.pkl"
+CORRECTIONS = RUN6 / "corrections_nc.npz"
+MAGNITUDES = RUN6 / "mag_model_nc.pkl"
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate and f32
 # rate outside the tensor cores.
@@ -252,9 +273,16 @@ def load_model(cfg):
 
 
 def make_picks(ctx, trv, seed: int, span: float = 600.0, n_events: int = 6,
-               false_rate: float = 1.0, max_dist: float = 150e3):
+               false_rate: float = 1.0, max_dist: float = 150e3, mag=None):
     """Planted events (P and S at stations within ``max_dist``, Gaussian
-    pick noise) plus uniform false picks at ``false_rate`` per second."""
+    pick noise) plus uniform false picks at ``false_rate`` per second.
+
+    With ``mag`` (the pipeline's magnitude-model dict) the events also get
+    magnitudes U[2.2, 3.5] and every pick an amplitude: a planted pick
+    ``10**(log-amplitude of the model + N(0, 0.1))``, a false pick
+    ``10**U(-1, 1)``; these draws come from their own generator, so the
+    picks are those of the call without ``mag``. Returns (t, sta, phase,
+    ev_pos, ev_t) and, with ``mag``, also (amp, ev_mag)."""
     import torch
 
     rng = np.random.default_rng(seed + 1)
@@ -264,10 +292,13 @@ def make_picks(ctx, trv, seed: int, span: float = 600.0, n_events: int = 6,
     ev_pos = rng.uniform(lo + 0.25 * (hi - lo), hi - 0.25 * (hi - lo), (n_events, 3))
     ev_pos[:, 2] = rng.uniform(-20e3, -3e3, n_events)
     ev_t = np.sort(rng.uniform(30.0, span - 60.0, n_events))
-    tt = trv.from_cart(ctx.sta_cart, torch.as_tensor(ev_pos, dtype=torch.float32,
-                                                     device=ctx.sta_cart.device))
-    tt = tt.cpu().numpy()
-    t, s, p = [], [], []
+    dev = ctx.sta_cart.device
+    with torch.no_grad():
+        tt = trv.from_cart(ctx.sta_cart, torch.as_tensor(ev_pos, dtype=torch.float32,
+                                                         device=dev)).cpu().numpy()
+    rng_amp = np.random.default_rng(seed + 2)
+    ev_mag = rng_amp.uniform(2.2, 3.5, n_events)
+    t, s, p, amp = [], [], [], []
     for e in range(n_events):
         near = np.where(np.linalg.norm(sta[:, :2] - ev_pos[e, None, :2], axis=1)
                         < max_dist)[0]
@@ -275,14 +306,29 @@ def make_picks(ctx, trv, seed: int, span: float = 600.0, n_events: int = 6,
             t.append(ev_t[e] + tt[e, near, ph] + rng.normal(0, sig, len(near)))
             s.append(near)
             p.append(np.full(len(near), ph))
+            if mag is not None:
+                with torch.no_grad():
+                    log_amp = mag["model"](
+                        torch.as_tensor(np.repeat(ev_pos[e:e + 1], len(near), 0),
+                                        dtype=torch.float32, device=dev),
+                        ctx.sta_cart, torch.as_tensor(mag["grid_cart"], device=dev),
+                        torch.as_tensor(near, device=dev),
+                        torch.full((len(near),), ph, device=dev),
+                        mag=torch.full((len(near),), float(ev_mag[e]), device=dev))
+                amp.append(10 ** (log_amp.cpu().numpy()
+                                  + rng_amp.normal(0, 0.1, len(near))))
     n_false = int(false_rate * span)
     t.append(rng.uniform(0, span, n_false))
     s.append(rng.integers(0, len(sta), n_false))
     p.append(rng.integers(0, 2, n_false))
+    amp.append(10 ** rng_amp.uniform(-1, 1, n_false))
     t, s, p = map(np.concatenate, (t, s, p))
     order = np.argsort(t)
-    return (t[order].astype(np.float32), s[order].astype(np.int64),
-            p[order].astype(np.float32), ev_pos, ev_t)
+    out = (t[order].astype(np.float32), s[order].astype(np.int64),
+           p[order].astype(np.float32), ev_pos, ev_t)
+    if mag is None:
+        return out
+    return out + (np.concatenate(amp)[order], ev_mag)
 
 
 # -- phase 4 ---------------------------------------------------------------
@@ -308,35 +354,271 @@ def check_sweep_window(pipe, model_cpu, cfg, ctx, trv, picks, x_query):
         fail(f"sweep window differs from the CPU plain path by {err}")
 
 
-def profile_request(pipe, picks):
+def profile_request(pipe, picks, pick_amp=None, tag="profile", ranges=()):
     """One more request under ``torch.profiler``: device time by kernel
-    name and the device busy share (Σ kernel time / host wall time)."""
+    name, the device busy share (Σ kernel time / host wall time), and the
+    device time of the kernels launched inside each ``record_function``
+    range named in ``ranges`` (a range nested in another counts in both)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        pipe.process(picks[0], picks[1], picks[2], 0.0, 600.0)
+        pipe.process(picks[0], picks[1], picks[2], 0.0, 600.0, pick_amp=pick_amp)
         torch.cuda.synchronize()
         wall = time.time() - t0
     by_name: dict[str, list] = {}
+    in_range = dict.fromkeys(ranges, 0.0)
     for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA and ev.name in in_range:
+            continue    # the range's own span on the device timeline, not a kernel
         if ev.device_type == DeviceType.CUDA:
             rec = by_name.setdefault(ev.name, [0.0, 0])
             rec[0] += ev.time_range.elapsed_us() / 1e3
             rec[1] += 1
+        elif ev.name in in_range:
+            in_range[ev.name] += ev.device_time_total / 1e3
     total = sum(v[0] for v in by_name.values())
     if total == 0.0:
-        print("[profile] the profiler recorded no device time: not measured")
+        print(f"[{tag}] the profiler recorded no device time: not measured")
         return
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     fused = sum(v[0] for k, v in by_name.items() if "fused_round" in k)
-    print("[profile] " + json.dumps({
+    print(f"[{tag}] " + json.dumps({
         "wall_s": wall, "device_ms": total, "busy_share": total / 1e3 / wall,
         "fused_round_ms": fused, "fused_round_share_of_device": fused / total,
+        "ranges_ms": in_range,
+        "ranges_share_of_device": {k: v / total for k, v in in_range.items()},
         "top": [{"kernel": k[:90], "ms": v[0], "n": v[1]} for k, v in top]}),
         flush=True)
+
+
+def labelled(fn, name):
+    """``fn`` inside a ``record_function`` range, so the profiler can sum
+    the device time of what it launches."""
+    from torch.profiler import record_function
+
+    def call(*args):
+        with record_function(name):
+            return fn(*args)
+
+    return call
+
+
+# -- phase 5 ---------------------------------------------------------------
+def check_pinn(ctx, seed: int, n_src: int = 4096, dev="cuda"):
+    """The PINN on the card against the same weights on the CPU, for
+    ``n_src`` sources drawn in the grid box × every station. Returns the
+    card's PINN."""
+    import torch
+
+    from genie_tpu_torch.params import load_pinn
+
+    pinn = load_pinn(PINN, device=dev)
+    pinn_cpu = load_pinn(PINN, device="cpu")
+    rng = np.random.default_rng(seed + 3)
+    flat = ctx.grids_cart.reshape(-1, 3).cpu().numpy()
+    src = rng.uniform(flat.min(0), flat.max(0), (n_src, 3)).astype(np.float32)
+    src_d = torch.as_tensor(src, device=dev)
+    with torch.no_grad():
+        got = pinn.from_cart(ctx.sta_cart, src_d).cpu()
+        want = pinn_cpu.from_cart(ctx.sta_cart.cpu(), torch.as_tensor(src))
+        ms = cuda_time_ms(lambda: pinn.from_cart(ctx.sta_cart, src_d), reps=5)
+    err = float((got - want).abs().max())
+    n_pairs = n_src * ctx.sta_cart.shape[0]
+    print("[pinn] " + json.dumps({
+        "sources": n_src, "stations": int(ctx.sta_cart.shape[0]), "max_abs_dt_s": err,
+        "max_t_s": float(want.max()), "ms": ms, "pairs_per_s": n_pairs / ms * 1e3}),
+        flush=True)
+    if not np.isfinite(err) or err > 1e-3:
+        fail(f"PINN on the card differs from the CPU by {err} s > 1e-3 s")
+    return pinn
+
+
+# -- phase 6 ---------------------------------------------------------------
+def build_production(cfg, ctx, pinn, model, x_query, dev="cuda"):
+    """run6's serving configuration on the card: grid tables from the PINN
+    shifted by the corrections at every grid node (as
+    ``scripts/nc_process.py`` does), the corrected PINN as the pipeline's
+    travel time, and the magnitude model. The per-station artifacts hold
+    the 374 NC stations; a rehearsal with fewer stations takes the first
+    ones. Returns (pipeline, ctx, trv, mag)."""
+    import torch
+
+    from genie_tpu_torch.calibration.corrections import (TravelTimeCorrection,
+                                                         interp_weighted)
+    from genie_tpu_torch.infer.pipeline import InferencePipeline
+    from genie_tpu_torch.params import load_magnitude_model
+    from genie_tpu_torch.train.trainer import build_domain_context
+    from genie_tpu_torch.utils import compute_travel_times_chunked
+
+    t0 = time.time()
+    n_sta = ctx.sta_cart.shape[0]
+    z = np.load(CORRECTIONS)
+    trv = TravelTimeCorrection(labelled(pinn.from_cart, "pinn"), z["grid_cart"],
+                               z["coefs"][:, :n_sta]).to(dev)
+    with torch.no_grad():
+        pinn_grids = torch.stack([
+            compute_travel_times_chunked(pinn.from_cart, ctx.sta_cart, g)
+            for g in ctx.grids_cart])
+        corr = torch.stack([interp_weighted(trv.grid_cart, trv.coefs, g)
+                            for g in ctx.grids_cart])
+    trv_grids = pinn_grids + corr
+    ctx_p = build_domain_context(cfg, ctx.sta_lla, ctx.sta_cart, ctx.grids_lla,
+                                 ctx.grids_cart, trv_grids, dev)
+    mag = load_magnitude_model(MAGNITUDES, device=dev)
+    mag["model"].bias = torch.nn.Parameter(mag["model"].bias[:, :n_sta],
+                                           requires_grad=False)
+    pipe = InferencePipeline(model, cfg, ctx_p, labelled(trv.from_cart, "trv"),
+                             x_query_grid=x_query, mag_model=mag, device=dev)
+    torch.cuda.synchronize()
+    print(f"[production] domain: PINN grid tables (mean |PINN - homogeneous| "
+          f"{float((pinn_grids - ctx.trv_grids).abs().mean()):.3f} s) + corrections "
+          f"(mean |corr| {float(corr.abs().mean()):.4f} s, max "
+          f"{float(corr.abs().max()):.4f} s); magnitude model ({mag['n_sta']} "
+          f"stations, {len(mag['grid_cart'])} nodes, dist_model "
+          f"{mag['dist_model']['kind']}); set up in {time.time() - t0:.1f} s",
+          flush=True)
+    if not torch.isfinite(trv_grids).all():
+        fail("the production grid tables are not finite")
+
+    t0 = time.time()
+    pipe_q = InferencePipeline(model, cfg, ctx_p, trv.from_cart, mag_model=mag,
+                               device=dev)
+    torch.cuda.synchronize()
+    xq = pipe_q.x_query
+    lo, hi = ctx_p.offset_cart, ctx_p.offset_cart + ctx_p.scale_cart
+    inside = float(((xq >= lo - 0.05 * (hi - lo)) & (xq <= hi + 0.05 * (hi - lo)))
+                   .all(dim=1).float().mean())
+    print(f"[production] build_query_grid on the card: {xq.shape[0]} nodes in "
+          f"{time.time() - t0:.2f} s (pipeline set-up included), {inside:.4f} "
+          f"inside the box", flush=True)
+    if xq.shape[0] != cfg.process.n_query_grid or not torch.isfinite(xq).all() \
+            or inside < 1.0:
+        fail("the k-means query grid is malformed")
+    del pipe_q
+    return pipe, ctx_p, trv, mag
+
+
+def production_request(pipe, cfg, ctx, trv, mag, seed: int):
+    """Two timed requests with amplitudes and a profiled third; every
+    planted event must come back located and with its magnitude. Returns
+    the fused-round launches of the second request."""
+    import torch
+
+    from genie_tpu_torch.ops.fused_round import fused_round
+
+    picks = make_picks(ctx, trv, seed, mag=mag)
+    amp, ev_mag = picks[5], picks[6]
+    print(f"[production] {len(picks[0])} picks over 600 s, {len(picks[3])} planted "
+          f"events, M {np.round(ev_mag, 2).tolist()}", flush=True)
+    results = []
+    for call in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        fused_round.launches = 0
+        t0 = time.time()
+        events = pipe.process(picks[0], picks[1], picks[2], 0.0, 600.0, pick_amp=amp)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches = fused_round.launches
+        results.append((events, launches, wall, dict(pipe.stage_seconds),
+                        torch.cuda.max_memory_allocated()))
+        print(f"[production] call {call + 1}: {len(events)} events, {launches} "
+              f"fused_round launches, {wall:.2f} s", flush=True)
+    events, launches, wall, stages, peak = results[-1]
+    if launches <= 0:
+        fail("the production path launched the fused_round kernel 0 times")
+    for ev in events:
+        if not (np.isfinite(ev.pos_cart).all() and np.isfinite(ev.time)
+                and ev.mag is not None and np.isfinite(ev.mag)):
+            fail(f"malformed production event {ev}")
+    ev_pos, ev_t = picks[3], picks[4]
+    for j in range(len(ev_t)):
+        near = [ev for ev in events if abs(ev.time - ev_t[j]) < 0.5
+                and np.linalg.norm(ev.pos_cart - ev_pos[j]) < 5e3]
+        best = min(events, key=lambda ev: abs(ev.time - ev_t[j])) if events else None
+        if best is not None:
+            print(f"[production] planted t={ev_t[j]:.2f} s M {ev_mag[j]:.2f}: nearest "
+                  f"event dt {best.time - ev_t[j]:+.3f} s, "
+                  f"{np.linalg.norm(best.pos_cart - ev_pos[j]) / 1e3:.2f} km, M "
+                  f"{best.mag:.2f}, {len(best.picks)} picks")
+        if not near:
+            fail(f"planted event {j} (t={ev_t[j]:.2f} s) not located within 5 km and 0.5 s")
+        if min(abs(ev.mag - ev_mag[j]) for ev in near) > 0.25:
+            fail(f"planted event {j}: magnitude off by more than 0.25")
+    print("[stages] production, second call, host seconds: "
+          + json.dumps({k: round(v, 4) for k, v in stages.items()}))
+    print(f"[production] events {len(events)}, fused_round launches {launches}, "
+          f"wall {wall:.3f} s, max_memory_allocated {peak} B ({peak / 2**30:.2f} GiB)")
+    profile_request(pipe, picks, pick_amp=amp, tag="profile production",
+                    ranges=("trv", "pinn"))
+    return launches
+
+
+# -- phase 7 ---------------------------------------------------------------
+def locate_at_limits(ctx, trv, pinn, seed: int, n_ev: int = 256, n_pick: int = 48,
+                     popsize: int = 128, n_iter: int = 150, dev="cuda"):
+    """One DE location call through the corrected PINN at the pipeline's
+    batch limit: ``n_ev`` planted sources, each picked at its ``n_pick / 2``
+    nearest stations (P and S, 0.1 s noise)."""
+    import torch
+
+    from genie_tpu_torch.infer.locate import locate_sources_batched
+
+    rng = np.random.default_rng(seed + 4)
+    lo = ctx.offset_cart.cpu().numpy()
+    hi = lo + ctx.scale_cart.cpu().numpy()
+    pos = rng.uniform(lo + 0.2 * (hi - lo), hi - 0.2 * (hi - lo), (n_ev, 3))
+    pos[:, 2] = rng.uniform(-20e3, -3e3, n_ev)
+    pos_d = torch.as_tensor(pos, dtype=torch.float32, device=dev)
+    sta = ctx.sta_cart
+    with torch.no_grad():
+        tt = trv.from_cart(sta, pos_d)                               # (n_ev, n_sta, 2)
+    d = torch.linalg.norm(sta[None, :, :2] - pos_d[:, None, :2], dim=-1)
+    near = torch.topk(-d, n_pick // 2, dim=1).indices                # (n_ev, n_pick/2)
+    ip = torch.cat((near, near), dim=1).to(torch.int32)
+    ph = torch.cat((torch.zeros_like(near), torch.ones_like(near)), dim=1)
+    tp = torch.gather(tt, 1, ip.long()[..., None].expand(-1, -1, 2))
+    tp = torch.gather(tp, 2, ph[..., None])[..., 0]
+    tp = tp + torch.as_tensor(rng.normal(0, 0.1, tp.shape), dtype=torch.float32,
+                              device=dev)
+    mk = torch.ones_like(tp, dtype=torch.bool)
+    lo_b = torch.cat((ctx.offset_cart, torch.tensor([-30.0], device=dev)))
+    hi_b = torch.cat((ctx.offset_cart + ctx.scale_cart, torch.tensor([30.0], device=dev)))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def run():
+        with torch.no_grad():
+            return locate_sources_batched(gen, trv.from_cart, sta, tp, ip,
+                                          ph[..., None].float(), mk, lo_b, hi_b,
+                                          popsize=popsize, n_iter=n_iter)
+
+    run()                                      # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    loc, t_org, _ = run()
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    err = torch.linalg.norm(loc - pos_d, dim=1).cpu().numpy()
+    cand = torch.as_tensor(rng.uniform(lo, hi, (n_ev, popsize, 3)), dtype=torch.float32,
+                           device=dev)
+    with torch.no_grad():
+        pinn_ms = cuda_time_ms(lambda: pinn.from_cart(sta, cand), reps=3, warmup=1)
+        trv_ms = cuda_time_ms(lambda: trv.from_cart(sta, cand), reps=3, warmup=1)
+    n_pairs = n_ev * popsize * sta.shape[0]
+    print("[locate] " + json.dumps({
+        "events": n_ev, "picks": n_pick, "popsize": popsize, "n_iter": n_iter,
+        "stations": int(sta.shape[0]), "pairs_per_objective": n_pairs, "ms": ms,
+        "max_memory_allocated_bytes": peak, "peak_gib": peak / 2**30,
+        "objective_pinn_ms": pinn_ms, "objective_corrected_ms": trv_ms,
+        "correction_share_of_objective_trv": (trv_ms - pinn_ms) / trv_ms,
+        "error_m_median": float(np.median(err)), "error_m_p90": float(np.quantile(err, 0.9)),
+        "abs_t0_s_median": float(t_org.abs().median())}), flush=True)
+    if not np.isfinite(err).all():
+        fail("the DE location at the pipeline's limits gave non-finite positions")
 
 
 def main():
@@ -419,6 +701,13 @@ def main():
 
     profile_request(pipe, picks)
 
+    pinn = check_pinn(ctx, args.seed)
+    del pipe
+    torch.cuda.empty_cache()
+    pipe_p, ctx_p, trv_p, mag = build_production(cfg, ctx, pinn, model, x_query)
+    launches_p = production_request(pipe_p, cfg, ctx_p, trv_p, mag, args.seed)
+    locate_at_limits(ctx_p, trv_p, pinn, args.seed)
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -432,7 +721,8 @@ def main():
         "name": "fused_dual_round", "route": "cuda",
         "source": "genie_tpu_torch/csrc/fused_round.cu",
         "replaces": "genie_tpu/ops/pallas_fused.py:63",
-        "launches": launches,
+        "launches": launches_p,
+        "launches_by_path": {"homogeneous": launches, "production": launches_p},
         "max_abs_err": max(r["max_abs_err"] for r in records),
         "max_abs_diff": max(r["max_abs_err"] for r in records),
         "ms": r1["ms"], "plain_ms": r1["plain_ms"], "bound_ms": r1["bound_ms"],

@@ -1,10 +1,12 @@
 """Graph construction: kNN tables, time pointers, pick pairs, edge features.
 
-Port of ``genie_tpu/graphs/build.py:228-302``. Tables are torch tensors on
-the device of their inputs. ``torch.topk`` may order equal keys differently
-from ``jax.lax.top_k``, so tables agree with the JAX package as sets; every
-consumer is invariant to the order within a row. The k-means grid packing
-family is not ported yet.
+Port of ``genie_tpu/graphs/build.py:26-51, 228-302``. Tables are torch
+tensors on the device of their inputs. ``torch.topk`` may order equal keys
+differently from ``jax.lax.top_k``, so tables agree with the JAX package as
+sets; every consumer is invariant to the order within a row. Of the k-means
+packing family only :func:`kmeans_packing` (the inference query grid) is
+ported; its draws come from a ``torch.Generator`` and differ from
+``jax.random``'s.
 """
 
 from __future__ import annotations
@@ -13,6 +15,37 @@ import numpy as np
 import torch
 
 from genie_tpu_torch.ops.knn import knn, knn_graph
+from genie_tpu_torch.ops.segment import segment_mean
+
+
+def kmeans_step(v, x, to_cart, weight, lr: float):
+    """One stochastic Lloyd step: every node moves ``lr`` of the way to the
+    mean of the samples ``x`` nearest to it (in ``weight``-scaled Cartesian
+    coordinates); nodes without samples stay."""
+    idx, _ = knn(to_cart(v) * weight, to_cart(x) * weight, 1)
+    ip = idx[:, 0].long()
+    return v + lr * segment_mean(x - v[ip], ip, v.shape[0])
+
+
+def kmeans_packing(generator, scale_x, offset_x, n_clusters: int, to_cart,
+                   weight=None, n_batch: int = 3000, n_steps: int = 1000,
+                   lr: float = 0.01):
+    """Pack ``n_clusters`` nodes quasi-uniformly over the box ``offset_x +
+    [0, scale_x]`` by stochastic Lloyd iterations on the generator's device;
+    ``weight`` re-weights the Cartesian axes (depth importance)."""
+    dev = generator.device
+    scale_x = torch.as_tensor(np.asarray(scale_x, np.float32), device=dev).reshape(1, -1)
+    offset_x = torch.as_tensor(np.asarray(offset_x, np.float32), device=dev).reshape(1, -1)
+    w = (torch.ones((1, 3), device=dev) if weight is None else
+         torch.as_tensor(np.asarray(weight, np.float32), device=dev).reshape(1, -1))
+
+    def uniform(n):
+        return torch.rand((n, 3), generator=generator, device=dev) * scale_x + offset_x
+
+    v = uniform(n_clusters)
+    for _ in range(n_steps):
+        v = kmeans_step(v, uniform(n_batch), to_cart, w, lr)
+    return v
 
 
 def build_station_graph(sta_cart, k: int, sta_mask=None):

@@ -18,11 +18,15 @@ Port of ``genie_tpu/infer/pipeline.py``. Stages, as in the JAX package:
      components.
   7. LOCATION + QC — batched DE location, residual pick deletion with one
      re-location, Gauss-Newton covariance and outlier removal; then dedup.
+  8. MAGNITUDES — with a ``mag_model`` and pick amplitudes: per-event
+     median inverted magnitude, then the magnitude → distance pick QC.
 
 Every device stage goes through ``Detector``, whose four dual-relation
-rounds run the fused-round CUDA kernel on the GPU. HDF5 catalog output,
-magnitudes, subgraph mode, the bf16 sweep and k-means query-grid packing are
-not ported yet and raise ``NotImplementedError`` when asked for.
+rounds run the fused-round CUDA kernel on the GPU. Without ``x_query_grid``
+the detection queries are k-means packed on the device
+(:func:`build_query_grid`). Subgraph mode and the bf16 sweep are not ported
+yet and raise ``NotImplementedError`` when asked for; the HDF5 catalog is
+written by ``genie_tpu_torch.io.save_catalog`` (``workflow.process_day``).
 """
 
 from __future__ import annotations
@@ -36,10 +40,15 @@ import torch
 
 from genie_tpu_torch.config import Config
 from genie_tpu_torch.device import resolve_device
+from genie_tpu_torch.calibration.magnitude_scale import (
+    apply_magnitudes,
+    eval_magnitude_distance,
+)
 from genie_tpu_torch.graphs.build import (
     build_pair_table,
     build_query_attachment,
     build_station_graph,
+    kmeans_packing,
 )
 from genie_tpu_torch.infer.assign import competitive_assignment
 from genie_tpu_torch.infer.cluster import (
@@ -74,6 +83,14 @@ class CatalogEvent:
     score: float | None = None
 
 
+def build_query_grid(generator, ctx: DomainContext, n: int, n_steps: int = 100):
+    """k-means pack ``n`` detection query nodes over the Cartesian domain
+    box, depth weighted 2.5×, on the generator's device → (n, 3) float32."""
+    return kmeans_packing(generator, ctx.scale_cart.cpu().numpy(),
+                          ctx.offset_cart.cpu().numpy(), n, lambda x: x,
+                          weight=np.array([1.0, 1.0, 2.5]), n_steps=n_steps)
+
+
 def _check_assoc_mode(mode: str):
     if mode not in ASSOC_MODES:
         raise NotImplementedError(f"assoc_mode {mode!r} is not one of {ASSOC_MODES}")
@@ -83,7 +100,12 @@ class InferencePipeline:
     """Holds the model, domain tables and station subnetwork on one device.
 
     ``model`` is a :class:`Detector` with its weights loaded; it is moved to
-    ``device`` (default ``cuda``; ``device="cpu"`` must be asked for)."""
+    ``device`` (default ``cuda``; ``device="cpu"`` must be asked for).
+    ``mag_model`` is the dict ``{model, grid_cart, dist_model}`` of
+    ``params.load_magnitude_model`` (``dist_model`` may be None); its
+    :class:`MagnitudeModel` is moved to ``device`` too. Without
+    ``x_query_grid`` and with ``cfg.process.n_query_grid > 0`` the detection
+    queries are k-means packed from a generator seeded with 11."""
 
     def __init__(self, model: Detector, cfg: Config, ctx: DomainContext,
                  trv_from_cart, x_query_grid=None, n_t: int = 9,
@@ -95,15 +117,8 @@ class InferencePipeline:
             raise ValueError(f"unknown featurizer {featurizer!r}")
         if sweep_half:
             raise NotImplementedError("the bf16 sweep is not ported yet")
-        if mag_model is not None:
-            raise NotImplementedError("magnitudes are not ported yet")
         if cfg.graph.use_subgraph:
             raise NotImplementedError("subgraph mode is not ported yet")
-        if x_query_grid is None and cfg.process.n_query_grid:
-            raise NotImplementedError(
-                "k-means query-grid packing is not ported yet: pass "
-                "x_query_grid, or set cfg.process.n_query_grid = 0 to query "
-                "grid 0")
         _check_assoc_mode(cfg.process.assoc_mode)
         if ctx.sta_cart.device != self.device:
             raise ValueError(f"domain tables on {ctx.sta_cart.device}, "
@@ -114,13 +129,19 @@ class InferencePipeline:
         self.ctx = ctx
         self.trv = trv_from_cart
         self.n_t = n_t
+        self.mag = (None if mag_model is None else
+                    {**mag_model, "model": mag_model["model"].to(self.device)})
         self.verbose = verbose
         self.n_grids = int(ctx.grids_cart.shape[0])
         self._overflow = 0
         # latest arrival lag relative to a window start
         self._max_t = float(ctx.trv_grids.max())
         self.set_station_mask(sta_ind_use)
-        self.x_query = (torch.as_tensor(np.asarray(x_query_grid, np.float32),
+        if x_query_grid is None and cfg.process.n_query_grid:
+            x_query_grid = build_query_grid(
+                torch.Generator(device=self.device).manual_seed(11), ctx,
+                cfg.process.n_query_grid)
+        self.x_query = (torch.as_tensor(x_query_grid, dtype=torch.float32,
                                         device=self.device)
                         if x_query_grid is not None else ctx.grids_cart[0])
         self.t_query = torch.linspace(-cfg.model.t_win / 2, cfg.model.t_win / 2,
@@ -606,6 +627,7 @@ class InferencePipeline:
                             srcs[src_rows, 3], make_event)
 
     # -- stage 7: location + QC ---------------------------------------------
+    @torch.no_grad()
     def _residuals(self, ev, pick_t, pick_sta):
         pos = torch.as_tensor(ev.pos_cart[None], dtype=torch.float32, device=self.device)
         tt = self.trv(self.ctx.sta_cart, pos)[0].cpu().numpy()
@@ -688,8 +710,48 @@ class InferencePipeline:
             out.append(ev)
         return out
 
+    # -- stage 8: magnitudes ------------------------------------------------
+    def assign_magnitudes(self, events, pick_sta, pick_amp):
+        """Per-event magnitudes from the calibrated magnitude model, then
+        :meth:`magnitude_distance_qc`; a no-op without ``mag_model`` or
+        amplitudes."""
+        if self.mag is None or pick_amp is None:
+            return events
+        events = apply_magnitudes(events, self.mag["model"], self.ctx.sta_cart,
+                                  self.mag["grid_cart"], pick_sta, pick_amp)
+        return self.magnitude_distance_qc(events, pick_sta)
+
+    def magnitude_distance_qc(self, events, pick_sta, margin: float = 1.5):
+        """Drop picks whose epicentral distance exceeds ``margin``× the
+        plausible association distance for the event's magnitude (the
+        ``dist_model`` of the magnitude model), then re-apply the min
+        picks/stations filter. A no-op without ``dist_model``."""
+        dm = (self.mag or {}).get("dist_model")
+        if dm is None:
+            return events
+        sta = self.ctx.sta_cart.cpu().numpy()
+        out = []
+        for ev in events:
+            if ev.mag is None or not np.isfinite(ev.mag):
+                out.append(ev)
+                continue
+            d_max = margin * float(eval_magnitude_distance(dm, ev.mag))
+            d = np.linalg.norm(sta[pick_sta[ev.picks], :2]
+                               - ev.pos_cart[None, :2], axis=1)
+            keep = d <= d_max
+            if not keep.all():
+                ev.picks = ev.picks[keep]
+                ev.pick_phases = ev.pick_phases[keep]
+                if (len(ev.picks) < self.cfg.process.min_required_picks or
+                        len(np.unique(pick_sta[ev.picks]))
+                        < self.cfg.process.min_required_sta):
+                    continue
+            out.append(ev)
+        return out
+
     # -- full day ----------------------------------------------------------
-    def process(self, pick_t, pick_sta, pick_phase, t_start, t_end, grids=None):
+    def process(self, pick_t, pick_sta, pick_phase, t_start, t_end,
+                pick_amp=None, grids=None):
         """The whole day: sweep, then :meth:`process_from_sweep`. Host-clock
         seconds per stage land in ``self.stage_seconds``."""
         t_st = time.time()
@@ -697,13 +759,13 @@ class InferencePipeline:
                                                t_start, t_end, grids=grids)
         t_sweep = time.time() - t_st
         events = self.process_from_sweep(times_s, series, pick_t, pick_sta,
-                                         pick_phase)
+                                         pick_phase, pick_amp=pick_amp)
         self.stage_seconds = {"sweep": t_sweep, **self.stage_seconds}
         return events
 
     def process_from_sweep(self, times_s, series, pick_t, pick_sta, pick_phase,
-                           thresh=None):
-        """Stages 2-7 given a (possibly cached) sweep series."""
+                           pick_amp=None, thresh=None):
+        """Stages 2-8 given a (possibly cached) sweep series."""
         cfg = self.cfg
         _check_assoc_mode(cfg.process.assoc_mode)
         self.stage_seconds = {}
@@ -743,7 +805,10 @@ class InferencePipeline:
         located = self.locate(events, pick_t, pick_sta)
         deduped = self.dedup(located)
         self.stage_seconds["locate"] = time.time() - t_st
-        return deduped
+        t_st = time.time()
+        out = self.assign_magnitudes(deduped, pick_sta, pick_amp)
+        self.stage_seconds["magnitudes"] = time.time() - t_st
+        return out
 
     def dedup(self, events):
         """Final duplicate merge: among located events close in space-time

@@ -4,8 +4,10 @@ Port of ``genie_tpu/models/travel_time.py:37-101``. ``from_cart(sta_cart,
 src_cart)`` returns ``(..., n_src, n_sta, 2)`` seconds; leading batch
 dimensions of ``src_cart`` carry through. Both surrogates are plain torch
 ops, differentiable (``torch.func.jacfwd`` goes through them for the
-location covariance) and device-agnostic. The physics-informed network and
-the legacy MLP are not ported yet.
+location covariance) and device-agnostic. The physics-informed network
+(``models/travel_time_pinn.py``) and ``TravelTimeCorrection``
+(``calibration/corrections.py``) keep the same contract; the legacy MLP is
+not ported yet.
 """
 
 from __future__ import annotations

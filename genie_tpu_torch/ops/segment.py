@@ -1,9 +1,13 @@
-"""Fixed-k gather means and the dense averaging matrix.
+"""Segment reductions, fixed-k gather means and the dense averaging matrix.
 
-Port of ``genie_tpu/ops/segment.py:82-179``. GENIE's graphs have fixed
-fan-in (station kNN k=8, source kNN k=15), so a mean aggregation is a gather
-plus a masked mean over a k axis, or, with the row-stochastic matrix ``A``
-that :func:`aggregation_matrix` builds, one matrix product.
+Port of ``genie_tpu/ops/segment.py``. The edge-list reductions
+(``segment_sum``, ``segment_mean``, ``segment_max``, ``segment_softmax``)
+reduce rows of ``data`` into ``num_segments`` buckets given per-row segment
+ids, as ``jax.ops.segment_*`` do (an empty segment's max is -inf). GENIE's
+graphs have fixed fan-in (station kNN k=8, source kNN k=15), so a mean
+aggregation on them is a gather plus a masked mean over a k axis, or, with
+the row-stochastic matrix ``A`` that :func:`aggregation_matrix` builds, one
+matrix product.
 
 Product-graph tensors here carry any number of leading batch dimensions
 before ``(n_src, n_sta, C)``.
@@ -12,6 +16,34 @@ before ``(n_src, n_sta, C)``.
 from __future__ import annotations
 
 import torch
+
+
+def segment_sum(data, segment_ids, num_segments: int):
+    out = data.new_zeros((num_segments, *data.shape[1:]))
+    return out.index_add(0, segment_ids.long(), data)
+
+
+def segment_mean(data, segment_ids, num_segments: int):
+    s = segment_sum(data, segment_ids, num_segments)
+    cnt = segment_sum(data.new_ones(data.shape[:1]), segment_ids, num_segments)
+    return s / torch.clamp_min(cnt, 1.0).reshape((-1,) + (1,) * (data.dim() - 1))
+
+
+def segment_max(data, segment_ids, num_segments: int):
+    ids = segment_ids.long().reshape((-1,) + (1,) * (data.dim() - 1)).expand_as(data)
+    out = data.new_full((num_segments, *data.shape[1:]), float("-inf"))
+    return out.scatter_reduce(0, ids, data, reduce="amax", include_self=True)
+
+
+def segment_softmax(scores, segment_ids, num_segments: int):
+    """Numerically stable softmax within segments (PyG ``softmax`` twin);
+    ``scores`` (E, …) with the segment axis first."""
+    m = segment_max(scores, segment_ids, num_segments)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    ids = segment_ids.long()
+    e = torch.exp(scores - m[ids])
+    z = segment_sum(e, ids, num_segments)
+    return e / torch.clamp_min(z, 1e-20)[ids]
 
 
 def gather_sum(x, nbr_idx, nbr_valid=None):

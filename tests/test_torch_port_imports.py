@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no JAX, flax, optax or genie_tpu module is
-imported by any genie_tpu_torch module, entry points do not silently run on
-the CPU, and options the port does not carry yet raise."""
+imported by any genie_tpu_torch module, nothing needs h5py at import (the
+card's machine has none), entry points do not silently run on the CPU, and
+options the port does not carry yet raise."""
 
 import json
 import os
@@ -16,15 +17,19 @@ ROOT = Path(__file__).resolve().parent.parent
 
 _IMPORT_ALL = r"""
 import importlib, json, pkgutil, sys
+sys.modules["h5py"] = None      # importing h5py now raises ImportError
 import genie_tpu_torch
 names = ["genie_tpu_torch"]
 for m in pkgutil.walk_packages(genie_tpu_torch.__path__, "genie_tpu_torch."):
     importlib.import_module(m.name)
     names.append(m.name)
-from genie_tpu_torch.params import load_flax_params, load_into
+from genie_tpu_torch.params import (load_flax_params, load_into, load_magnitude_model,
+                                    load_pinn)
 from genie_tpu_torch.models.detector import Detector
 tree = load_flax_params("projects/NC_EHZ/run6/params.pkl")
 load_into(Detector(), tree)
+load_pinn("projects/NC_EHZ/Grids/pinn_nc.pkl", device="cpu")
+load_magnitude_model("projects/NC_EHZ/run6/mag_model_nc.pkl", device="cpu")
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "genie_tpu"))
@@ -41,7 +46,13 @@ def test_port_imports_no_jax_flax_optax_or_genie_tpu():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     for mod in ("genie_tpu_torch.infer.pipeline", "genie_tpu_torch.ops.fused_round",
-                "genie_tpu_torch.models.layers", "genie_tpu_torch.params"):
+                "genie_tpu_torch.models.layers", "genie_tpu_torch.params",
+                "genie_tpu_torch.io", "genie_tpu_torch.workflow",
+                "genie_tpu_torch.models.travel_time_pinn",
+                "genie_tpu_torch.models.magnitude",
+                "genie_tpu_torch.calibration.corrections",
+                "genie_tpu_torch.calibration.magnitude_scale",
+                "genie_tpu_torch.utils"):
         assert mod in res["modules"]
 
 
@@ -100,8 +111,11 @@ def test_entry_point_without_device_raises_when_no_cuda(monkeypatch):
                                     "sweep_half", "mag_model", "kmeans_query_grid",
                                     "assoc_mode"])
 def test_unported_options_raise(option):
+    """The options still to port raise. Magnitudes and the k-means query
+    grid are ported: their cases now check that the pipeline takes them."""
     from genie_tpu_torch.infer.pipeline import InferencePipeline
     from genie_tpu_torch.models.detector import Detector
+    from genie_tpu_torch.models.magnitude import MagnitudeModel
 
     cfg = _tiny_cfg()
     ctx = _tiny_ctx(cfg)
@@ -115,9 +129,17 @@ def test_unported_options_raise(option):
     elif option == "sweep_half":
         kw["sweep_half"] = True
     elif option == "mag_model":
-        kw["mag_model"] = {"model": None}
+        kw["mag_model"] = {"model": MagnitudeModel(n_sta=6, n_grid=2),
+                           "grid_cart": np.zeros((2, 3), np.float32),
+                           "dist_model": None}
+        pipe = InferencePipeline(Detector(), cfg, ctx, lambda s, x: None, **kw)
+        assert pipe.mag["model"].bias.shape == (2, 6, 2)
+        return
     elif option == "kmeans_query_grid":
         cfg.process.n_query_grid = 100
+        pipe = InferencePipeline(Detector(), cfg, ctx, lambda s, x: None, **kw)
+        assert tuple(pipe.x_query.shape) == (100, 3)
+        return
     elif option == "assoc_mode":
         cfg.process.assoc_mode = "spam"
     with pytest.raises(NotImplementedError):
