@@ -41,7 +41,25 @@ Phases (any failure exits non-zero):
      located within 5 km and 0.5 s with |ΔM| ≤ 0.25;
   7. ``[locate]``: one ``locate_sources_batched`` call through the
      corrected PINN at the pipeline's limits, 256 events × 48 picks,
-     popsize 128, 150 iterations: its time and peak memory.
+     popsize 128, 150 iterations: its time and peak memory;
+  8. ``[train]``: detector training at run6 width, as ``scripts/nc_train.py
+     --trv pinn --restart`` runs it with run6's ``synth:`` and ``train:``
+     blocks (8 windows of a 3600 s timeline of up to 96 events and 2048
+     false picks, 2000 detection and 96 association queries, 512 picks,
+     sequential windows, positive boost 100) on grid tables from the PINN
+     without corrections and no observed subnetworks. First the checks:
+     the ``FusedRound`` backward against autograd through the plain round
+     for the three round forms of phase 2 (max |Δgrad| per input ≤ 1e-4 ×
+     its max |grad|), and one window's loss and parameter gradients on the
+     card against the plain CPU path (loss within 1e-4 relative, each
+     gradient within 1e-3 × its max |g|). Then ``workflow.train`` resumes
+     ``run6/params.pkl`` with its Adam state at step 20000 and takes three
+     steps (the kernel launch count set to 0 just before, 32 forward
+     launches per step expected), and one more step runs under the
+     profiler: seconds per stage, peak memory, the four loss parts,
+     trgts/preds, the Adam count (20004), device time by kernel with the
+     fused round's forward and backward shares. Every loss must be finite
+     and the weights must move.
 
 It prints per-stage times, event counts, launches, peak memory, the card's
 name and power limit, a JSON line describing every kernel, and as its last
@@ -52,9 +70,11 @@ no h5py.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -360,7 +380,6 @@ def profile_request(pipe, picks, pick_amp=None, tag="profile", ranges=()):
     device time of the kernels launched inside each ``record_function``
     range named in ``ranges`` (a range nested in another counts in both)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -368,6 +387,14 @@ def profile_request(pipe, picks, pick_amp=None, tag="profile", ranges=()):
         pipe.process(picks[0], picks[1], picks[2], 0.0, 600.0, pick_amp=pick_amp)
         torch.cuda.synchronize()
         wall = time.time() - t0
+    summarize_profile(prof, wall, tag, ranges)
+
+
+def summarize_profile(prof, wall, tag, ranges=()):
+    """Print device time by kernel name, the device busy share and the
+    device time inside each named range of a finished profiler run."""
+    from torch.autograd import DeviceType
+
     by_name: dict[str, list] = {}
     in_range = dict.fromkeys(ranges, 0.0)
     for ev in prof.events():
@@ -382,7 +409,7 @@ def profile_request(pipe, picks, pick_amp=None, tag="profile", ranges=()):
     total = sum(v[0] for v in by_name.values())
     if total == 0.0:
         print(f"[{tag}] the profiler recorded no device time: not measured")
-        return
+        return None
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     fused = sum(v[0] for k, v in by_name.items() if "fused_round" in k)
     print(f"[{tag}] " + json.dumps({
@@ -392,6 +419,7 @@ def profile_request(pipe, picks, pick_amp=None, tag="profile", ranges=()):
         "ranges_share_of_device": {k: v / total for k, v in in_range.items()},
         "top": [{"kernel": k[:90], "ms": v[0], "n": v[1]} for k, v in top]}),
         flush=True)
+    return {"device_ms": total, "fused_round_ms": fused, "ranges_ms": in_range}
 
 
 def labelled(fn, name):
@@ -621,6 +649,222 @@ def locate_at_limits(ctx, trv, pinn, seed: int, n_ev: int = 256, n_pick: int = 4
         fail("the DE location at the pipeline's limits gave non-finite positions")
 
 
+# -- phase 8 ---------------------------------------------------------------
+def run6_train_config():
+    """run6's ``synth:`` and ``train:`` blocks on top of its inference
+    settings; every other value of those two blocks equals its default."""
+    cfg = run6_config()
+    s, t = cfg.synth, cfg.train
+    s.T, s.max_rate_events, s.dist_range = 3600.0, 40.0, (15000.0, 350000.0)
+    s.max_events, s.n_false_max = 96, 2048
+    t.n_batch, t.n_spc_query, t.n_src_query, t.lr = 8, 2000, 96, 0.0005
+    t.loss_weights = (0.3, 0.5, 0.1, 0.1)
+    t.sequential_windows, t.positive_boost = True, 100.0
+    return cfg
+
+
+def check_backward(sta_nbr, sta_w, seed: int, dev="cuda"):
+    """(i) ``FusedRound``'s backward on the card against autograd through
+    ``fused_round_plain`` on the card, for the three round forms of
+    ``check_kernel`` at 8000 × 374: max |Δgrad| of each input ≤ TOL × its
+    max |grad|. Returns per-form records with both backward times."""
+    import torch
+
+    from genie_tpu_torch.ops.fused_round import FusedRound, fused_round_plain
+
+    dev = torch.device(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    rows, n_sta = 16 * 500, int(sta_nbr.shape[0])
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    names = ("x", "z", "agg_src", "w1", "b1", "w2", "b2", "slopes")
+    records = []
+    for form, cx, cz, m, h, z_is_x in (("round1", 30, 30, 4, 30, True),
+                                       ("round2", 60, 30, 4, 15, False),
+                                       ("assoc", 30, 30, 5, 30, False)):
+        d = cx + cz + m
+        x = randn(rows, n_sta, cx).requires_grad_()
+        z = x if z_is_x else randn(rows, n_sta, cz).requires_grad_()
+        agg_src = randn(rows, n_sta, cz).requires_grad_()
+        mask = (torch.rand((rows, n_sta, m), generator=gen, device=dev) > 0.5).float()
+        params = [randn(h, d, scale=0.2), randn(h), randn(h, d, scale=0.2), randn(h)]
+        params = [p.requires_grad_() for p in params]
+        slopes = torch.tensor([0.25, 0.1], device=dev, requires_grad=True)
+        args = (x, z, agg_src, mask, sta_nbr, sta_w, *params, slopes)
+        leaves = [x] + ([] if z_is_x else [z]) + [agg_src, *params, slopes]
+        leaf_names = [n for n in names if not (z_is_x and n == "z")]
+        g_out = randn(rows, n_sta, 2 * h)
+
+        def grads(fn):
+            return torch.autograd.grad(fn(*args), leaves, g_out)
+
+        got = grads(FusedRound.apply)
+        want = grads(fused_round_plain)
+        rel = {n: float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+               for n, a, b in zip(leaf_names, got, want)}
+        worst = max(rel.values())
+        if not np.isfinite(worst) or worst > TOL:
+            fail(f"FusedRound backward {form}: max |Δgrad|/max|grad| {rel} > {TOL}")
+        del got, want
+        out_k = FusedRound.apply(*args)
+        out_p = fused_round_plain(*args)
+        bwd_ms = cuda_time_ms(lambda: torch.autograd.grad(out_k, leaves, g_out,
+                                                          retain_graph=True), reps=3)
+        bwd_plain_ms = cuda_time_ms(lambda: torch.autograd.grad(
+            out_p, leaves, g_out, retain_graph=True), reps=3, warmup=1)
+        rec = dict(form=form, rows=rows, n_sta=n_sta, max_rel_grad_err=worst,
+                   rel_grad_err=rel, backward_ms=bwd_ms, plain_backward_ms=bwd_plain_ms)
+        print(f"[train-check] backward {json.dumps(rec)}", flush=True)
+        records.append(rec)
+        del out_k, out_p, x, z, agg_src, mask, args, leaves, g_out
+        torch.cuda.empty_cache()
+    return records
+
+
+def check_train_window(cfg, ctx, seed: int, dev="cuda"):
+    """(ii) one window's total loss and parameter gradients through the
+    kernel path on the card against the plain path on the CPU, run6
+    weights, PINN travel times: loss within TOL relative, each gradient
+    tensor within 1e-3 × its max |g|."""
+    import torch
+
+    from genie_tpu_torch.params import load_pinn
+    from genie_tpu_torch.train.trainer import generate_batch, loss_fn
+
+    cfg1 = copy.deepcopy(cfg)
+    cfg1.train.n_batch = 1
+    pinn, pinn_cpu = load_pinn(PINN, device=dev), load_pinn(PINN, device="cpu")
+    gen = torch.Generator(device=dev).manual_seed(seed + 6)
+    wb = generate_batch(gen, cfg1, ctx, pinn.from_cart)
+    ctx_cpu = type(ctx)(*[v.cpu() if isinstance(v, torch.Tensor) else v for v in ctx])
+    wb_cpu = type(wb)(*[v.cpu() for v in wb])
+    out = {}
+    for tag, model, c, w, trv in (("cuda", load_model(cfg).to(dev), ctx, wb, pinn),
+                                  ("cpu", load_model(cfg), ctx_cpu, wb_cpu, pinn_cpu)):
+        t0 = time.time()
+        total, (parts, trgts, preds) = loss_fn(model, c, cfg1, w, trv.from_cart,
+                                               backward=True)
+        grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
+        out[tag] = (float(total), parts.cpu().numpy(), grads, time.time() - t0)
+    (l_k, parts_k, g_k, s_k), (l_p, parts_p, g_p, s_p) = out["cuda"], out["cpu"]
+    loss_rel = abs(l_k - l_p) / max(abs(l_p), 1e-30)
+    grad_rel = {n: float((g_k[n] - g_p[n]).abs().max() / g_p[n].abs().max().clamp_min(1e-30))
+                for n in g_p}
+    worst = max(grad_rel, key=grad_rel.get)
+    print("[train-check] window " + json.dumps({
+        "loss_cuda": l_k, "loss_cpu": l_p, "loss_rel": loss_rel,
+        "parts_cuda": parts_k.tolist(), "parts_cpu": parts_p.tolist(),
+        "picks": int(wb.pick_mask.sum()), "max_rel_grad_err": grad_rel[worst],
+        "worst_param": worst, "n_params": len(grad_rel),
+        "cuda_s": s_k, "cpu_s": s_p}), flush=True)
+    if not (np.isfinite(l_k) and np.isfinite(l_p)) or loss_rel > TOL:
+        fail(f"training loss on the card {l_k} vs the CPU plain path {l_p}")
+    if not np.isfinite(grad_rel[worst]) or grad_rel[worst] > 1e-3:
+        fail(f"gradient of {worst} differs from the CPU plain path by "
+             f"{grad_rel[worst]} of its max |g|")
+
+
+def train_phase(cfg, ctx, pinn, seed: int, card: str, dev="cuda"):
+    """Phase 8: checks (ii), then three resumed steps of ``workflow.train``
+    (the main path, launch counts set to 0 just before), then one profiled
+    step. Returns the forward launches of the three steps."""
+    import torch
+
+    from genie_tpu_torch.ops.fused_round import fused_round
+    from genie_tpu_torch.params import load_flax_params, load_into
+    from genie_tpu_torch.train.trainer import (adam_state, build_domain_context,
+                                               make_train_step, step_seed)
+    from genie_tpu_torch.utils import compute_travel_times_chunked
+    from genie_tpu_torch.workflow import train
+
+    t0 = time.time()
+    with torch.no_grad():
+        pinn_grids = torch.stack([compute_travel_times_chunked(pinn.from_cart, ctx.sta_cart, g)
+                                  for g in ctx.grids_cart])
+    ctx_t = build_domain_context(cfg, ctx.sta_lla, ctx.sta_cart, ctx.grids_lla,
+                                 ctx.grids_cart, pinn_grids, dev)
+    torch.cuda.synchronize()
+    print(f"[train] domain: PINN grid tables, no corrections, no subnetworks; "
+          f"set up in {time.time() - t0:.1f} s", flush=True)
+    check_train_window(cfg, ctx_t, seed, dev)
+
+    start, n_steps = 20000, 3
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fused_round.launches = 0
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as out:
+        model, state, history = train(cfg, ctx_t, pinn, out, n_steps=start + n_steps,
+                                      log_every=1, seed=seed,
+                                      restart=RUN6 / "params.pkl")
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = fused_round.launches
+    peak = torch.cuda.max_memory_allocated()
+    per_step = 4 * cfg.train.n_batch
+    if launches != per_step * n_steps:
+        fail(f"[train] {launches} fused_round launches in {n_steps} steps, "
+             f"expected {per_step * n_steps}")
+    for i, (m, st) in enumerate(history):
+        print(f"[train] step {start + i}: " + json.dumps({
+            "loss": m["loss"], "parts": [m["loss_grid"], m["loss_query"], m["loss_p"],
+                                         m["loss_s"]],
+            "trgts": m["trgts"].tolist(), "preds": m["preds"].tolist(),
+            "stage_s": st, "step_s": sum(st.values())}), flush=True)
+        if not np.isfinite(m["loss"]):
+            fail(f"[train] step {start + i}: loss is not finite")
+    if state.step != start + n_steps:
+        fail(f"[train] resumed run ended at step {state.step}")
+
+    # one more step under the profiler, its launches counted on their own
+    step_fn = make_train_step(cfg, ctx_t, pinn.from_cart)
+    gen = torch.Generator(device=dev).manual_seed(step_seed(seed, state.step))
+    from torch.profiler import ProfilerActivity, profile
+
+    fused_round.launches = 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.time()
+        state, metrics = step_fn(state, gen)
+        torch.cuda.synchronize()
+        wall_p = time.time() - t1
+    launches_p = fused_round.launches
+    prof_sum = summarize_profile(prof, wall_p, "profile train", ranges=(
+        "generate", "forward_backward", "optimizer", "FusedRound", "FusedRoundBackward"))
+    count = adam_state(state.optimizer, model)["count"]
+    ref = load_into(load_model(cfg), load_flax_params(RUN6 / "params.pkl")).to(dev)
+    moved = max(float((p - q).abs().max()) for p, q in zip(
+        model.state_dict().values(), ref.state_dict().values()))
+    steady = [sum(st.values()) for _, st in history[1:]]
+    summary = {
+        "card": card, "steps": n_steps + 1, "windows_per_step": cfg.train.n_batch,
+        "wall_s_3_steps": wall, "s_per_step": float(np.mean(steady)),
+        "stage_s_mean": {k: float(np.mean([st[k] for _, st in history[1:]]))
+                         for k in history[0][1]},
+        "fused_round_launches_per_step": launches / n_steps,
+        "profiled_step_launches": launches_p, "profiled_step_wall_s": wall_p,
+        "max_memory_allocated_bytes": peak, "peak_gib": peak / 2**30,
+        "adam_count": count, "max_abs_weight_change": moved,
+        "profiled_loss": float(metrics["loss"])}
+    if prof_sum is not None:
+        r = prof_sum["ranges_ms"]
+        summary.update({
+            "device_ms_profiled_step": prof_sum["device_ms"],
+            "fused_round_forward_share_of_device": prof_sum["fused_round_ms"]
+            / prof_sum["device_ms"],
+            "fused_round_backward_share_of_device": r["FusedRoundBackward"]
+            / prof_sum["device_ms"]})
+    print("[train] " + json.dumps(summary), flush=True)
+    if count != start + n_steps + 1:
+        fail(f"[train] Adam count {count}, expected {start + n_steps + 1}")
+    if not np.isfinite(float(metrics["loss"])) or not moved > 0.0:
+        fail("[train] the profiled step's loss is not finite or the weights did not move")
+    if launches_p != per_step:
+        fail(f"[train] the profiled step launched the kernel {launches_p} times")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -654,8 +898,9 @@ def main():
           f"sources x {ctx.sta_cart.shape[0]} stations, {x_query.shape[0]} query "
           f"nodes, set up in {time.time() - t0:.1f} s", flush=True)
 
-    records = check_kernel(pipe.sta_nbr, aggregation_weights(
-        pipe.sta_nbr, pipe.sta_nbr_valid), args.seed)
+    sta_nbr = pipe.sta_nbr
+    sta_w = aggregation_weights(pipe.sta_nbr, pipe.sta_nbr_valid)
+    records = check_kernel(sta_nbr, sta_w, args.seed)
 
     picks = make_picks(ctx, trv, args.seed)
     print(f"[picks] {len(picks[0])} picks over 600 s, {len(picks[3])} planted "
@@ -707,13 +952,18 @@ def main():
     pipe_p, ctx_p, trv_p, mag = build_production(cfg, ctx, pinn, model, x_query)
     launches_p = production_request(pipe_p, cfg, ctx_p, trv_p, mag, args.seed)
     locate_at_limits(ctx_p, trv_p, pinn, args.seed)
+    del pipe_p, ctx_p, trv_p, mag
+    torch.cuda.empty_cache()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    print(f"[card] {smi.stdout.strip().splitlines()[0]}")
+    card = smi.stdout.strip().splitlines()[0]
+    bwd_records = check_backward(sta_nbr, sta_w, args.seed)
+    launches_t = train_phase(run6_train_config(), ctx, pinn, args.seed, card)
+    print(f"[card] {card}")
     print(f"[total] {time.time() - t_all:.1f} s")
 
     r1 = records[0]
@@ -721,13 +971,18 @@ def main():
         "name": "fused_dual_round", "route": "cuda",
         "source": "genie_tpu_torch/csrc/fused_round.cu",
         "replaces": "genie_tpu/ops/pallas_fused.py:63",
-        "launches": launches_p,
-        "launches_by_path": {"homogeneous": launches, "production": launches_p},
+        "launches": launches_t,
+        "launches_by_path": {"homogeneous": launches, "production": launches_p,
+                             "train": launches_t},
         "max_abs_err": max(r["max_abs_err"] for r in records),
         "max_abs_diff": max(r["max_abs_err"] for r in records),
         "ms": r1["ms"], "plain_ms": r1["plain_ms"], "bound_ms": r1["bound_ms"],
         "bound_by": r1["bound_by"], "library_ms": r1["library_ms"],
         "forms": records,
+        "backward_check": {"route": "pytorch ops (FusedRound.backward)",
+                           "max_rel_grad_err": max(r["max_rel_grad_err"]
+                                                   for r in bwd_records),
+                           "forms": bwd_records},
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

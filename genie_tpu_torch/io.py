@@ -1,4 +1,5 @@
-"""File IO: project layout, pick files, day catalogs, HypoDD export.
+"""File IO: project layout, pick files, day catalogs, HypoDD export, training
+checkpoints.
 
 Copied from ``genie_tpu/io.py`` (the filesystem contract of a GENIE
 project):
@@ -10,12 +11,20 @@ project):
   * the HypoDD ph2dt phase-format text export.
 
 ``h5py`` is imported only inside :func:`save_catalog` and
-:func:`load_catalog`, so importing this module does not need it. The
-checkpoint functions of the JAX package (orbax) are not ported.
+:func:`load_catalog`, so importing this module does not need it.
+
+Training checkpoints (:func:`save_checkpoint` / :func:`load_checkpoint`) are
+plain pickles of numpy arrays in flax layout, the format
+``scripts/nc_train.py`` writes (``projects/NC_EHZ/run6/params.pkl``), not
+the JAX package's orbax directories: orbax is not available where the port
+runs. The JAX package reads their weights with ``pickle`` +
+``Detector.apply``, and the port reads both its own and ``nc_train.py``'s.
 """
 
 from __future__ import annotations
 
+import os
+import pickle
 import zipfile
 from pathlib import Path
 
@@ -159,3 +168,42 @@ def export_hypodd_phase(path, events, pick_t, pick_sta, sta_names, projection=No
             name = sta_names[pick_sta[p]] if sta_names is not None else str(pick_sta[p])
             lines.append(f"{name:<8s} {pick_t[p] - ev.time:8.3f} 1.0 {'P' if ph == 0 else 'S'}")
     Path(path).write_text("\n".join(lines) + "\n")
+
+
+# -- training checkpoints -----------------------------------------------------
+
+def save_checkpoint(path, model, optimizer=None, step: int = 0, cfg=None):
+    """Atomically (temp file + ``os.replace``) pickle ``{"params": {"params":
+    weights}, "opt_state": {"count", "mu", "nu"}, "step", "config"}``, every
+    tree in flax layout (``params.to_flax``); ``mu``/``nu`` are
+    ``{"params": tree}`` like the weights, as optax keeps them."""
+    from genie_tpu_torch.params import to_flax
+    from genie_tpu_torch.train.trainer import adam_state
+
+    blob = {"params": {"params": to_flax(model)}, "step": int(step),
+            "config": None if cfg is None else cfg.to_dict()}
+    if optimizer is not None:
+        st = adam_state(optimizer, model)
+        blob["opt_state"] = {"count": np.int32(st["count"]),
+                             "mu": {"params": to_flax(st["mu"])},
+                             "nu": {"params": to_flax(st["nu"])}}
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_name(f".tmp_{os.getpid()}_{path.name}")
+    tmp.write_bytes(pickle.dumps(blob))
+    os.replace(tmp, path)
+    return path
+
+
+def load_checkpoint(path, model, optimizer=None) -> int:
+    """Load a checkpoint pickle (this module's or ``nc_train.py``'s) into
+    ``model`` and, when given, its Adam ``optimizer`` (the pickle must then
+    hold an Adam state). Returns the checkpoint's step."""
+    from genie_tpu_torch.params import _adam_state, _load_pickle, _weight_tree, load_into
+    from genie_tpu_torch.train.trainer import set_adam_state
+
+    blob = _load_pickle(path)
+    load_into(model, _weight_tree(blob))
+    if optimizer is not None:
+        set_adam_state(optimizer, model, _adam_state(blob, path))
+    return int(np.asarray(blob.get("step", 0)))

@@ -9,7 +9,8 @@ flax checkpoint loads by name (``genie_tpu_torch/params.py``).
 
 The four dual-relation rounds (two in :class:`DataAggregation`, two in
 :class:`DataAggregationAssociationPhase`) each call the fused-round kernel
-(``ops/fused_round.py``). The station mean runs inside it over the
+(``ops/fused_round.py``) through ``FusedRound``, which gives it a gradient
+for training. The station mean runs inside it over the
 ``(sta_nbr, sta_w)`` table; the source-axis mean ``A_src @ x`` stays a
 ``torch.matmul`` (plain XLA in the JAX package).
 """
@@ -22,7 +23,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from genie_tpu_torch.ops.fused_round import fused_round
+from genie_tpu_torch.ops.fused_round import FusedRound
 from genie_tpu_torch.ops.segment import matmul_mean_src_axis
 
 
@@ -86,17 +87,17 @@ class DataAggregation(nn.Module):
         tr = act(self.init_trns(torch.cat((tr, mask), dim=-1))).contiguous()
         # round 1: the station mean reads act11(tr) directly
         agg_src = matmul_mean_src_axis(act12(tr), tables.a_src)
-        tr = fused_round(tr, tr, agg_src, mask, tables.sta_nbr, tables.sta_w,
-                         self.l1_t1_2.weight, self.l1_t1_2.bias,
-                         self.l1_t2_2.weight, self.l1_t2_2.bias,
-                         _slopes(act11, act1))
+        tr = FusedRound.apply(tr, tr, agg_src, mask, tables.sta_nbr, tables.sta_w,
+                              self.l1_t1_2.weight, self.l1_t1_2.bias,
+                              self.l1_t2_2.weight, self.l1_t2_2.bias,
+                              _slopes(act11, act1))
         # round 2: Dense before each PReLU, applied first as a plain linear
         z = self.l2_t1_1(tr).contiguous()
         agg_src = matmul_mean_src_axis(act22(self.l2_t2_1(tr)), tables.a_src)
-        return fused_round(tr, z, agg_src, mask, tables.sta_nbr, tables.sta_w,
-                           self.l2_t1_2.weight, self.l2_t1_2.bias,
-                           self.l2_t2_2.weight, self.l2_t2_2.bias,
-                           _slopes(act21, act2))
+        return FusedRound.apply(tr, z, agg_src, mask, tables.sta_nbr, tables.sta_w,
+                                self.l2_t1_2.weight, self.l2_t1_2.bias,
+                                self.l2_t2_2.weight, self.l2_t2_2.bias,
+                                _slopes(act21, act2))
 
 
 class BipartiteReadIn(nn.Module):
@@ -284,9 +285,9 @@ class DataAggregationAssociationPhase(nn.Module):
                  act21, act22, act2)):
             z = t1_1(tr).contiguous()
             agg_src = matmul_mean_src_axis(a_src(t2_1(tr)), tables.a_src)
-            tr = fused_round(tr, z, agg_src, mask, tables.sta_nbr, tables.sta_w,
-                             t1_2.weight, t1_2.bias, t2_2.weight, t2_2.bias,
-                             _slopes(a_sta, a_out))
+            tr = FusedRound.apply(tr, z, agg_src, mask, tables.sta_nbr, tables.sta_w,
+                                  t1_2.weight, t1_2.bias, t2_2.weight, t2_2.bias,
+                                  _slopes(a_sta, a_out))
         return tr
 
 

@@ -19,6 +19,8 @@ nonzeros that ``aggregation_matrix`` puts in the dense ``A_sta``. ``z`` is
 :func:`fused_round` launches the kernel (``csrc/fused_round.cu``) on CUDA
 tensors and raises if it cannot; it takes :func:`fused_round_plain` only for
 tensors that lie on the CPU. ``fused_round.launches`` counts kernel launches.
+:class:`FusedRound` wraps it for autograd (training), with the analytic
+backward :func:`fused_round_backward_plain` in PyTorch ops.
 :func:`fused_dual_round` keeps the JAX signature (dense ``A_sta``, flax
 ``(in, out)`` weights, three slopes) for parity tests.
 """
@@ -31,7 +33,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from genie_tpu_torch.ops.segment import dense_to_neighbours
+from genie_tpu_torch.ops.segment import dense_to_neighbours, neighbours_to_dense
 
 # Per-block shared-memory limit of an H100 (sm_90), bytes.
 MAX_SMEM_PER_BLOCK = 232448
@@ -46,11 +48,17 @@ def fused_round_plain(x, z, agg_src, mask, nbr, w, w1, b1, w2, b2, slopes):
     (..., n_sta, Cz); mask (..., n_sta, M); nbr/w (n_sta, k); w1/w2
     ``Linear.weight`` layout (H, Cx+Cz+M); slopes (2,) = (a_sta, a_out).
     Returns (..., n_sta, 2H)."""
+    return _prelu(_pre_activations(x, z, agg_src, mask, nbr, w, w1, b1, w2, b2,
+                                   slopes)[2], slopes[1])
+
+
+def _pre_activations(x, z, agg_src, mask, nbr, w, w1, b1, w2, b2, slopes):
+    """The plain twin up to its output PReLU: (u1, u2, [h1 ‖ h2])."""
     zp = _prelu(z, slopes[0])
     agg_sta = (zp[..., nbr.long(), :] * w[..., None]).sum(dim=-2)
-    h1 = F.linear(torch.cat((x, agg_sta, mask), dim=-1), w1, b1)
-    h2 = F.linear(torch.cat((x, agg_src, mask), dim=-1), w2, b2)
-    return _prelu(torch.cat((h1, h2), dim=-1), slopes[1])
+    u1 = torch.cat((x, agg_sta, mask), dim=-1)
+    u2 = torch.cat((x, agg_src, mask), dim=-1)
+    return u1, u2, torch.cat((F.linear(u1, w1, b1), F.linear(u2, w2, b2)), dim=-1)
 
 
 def _bind(lib):
@@ -145,6 +153,84 @@ def fused_round(x, z, agg_src, mask, nbr, w, w1, b1, w2, b2, slopes):
 
 
 fused_round.launches = 0
+
+
+def _dprelu(h, a):
+    """d PReLU(h)/dh as autograd takes it through :func:`_prelu`."""
+    return (h >= 0).to(h.dtype) + a * (h <= 0).to(h.dtype)
+
+
+def fused_round_backward_plain(grad_out, x, z, agg_src, mask, nbr, w, w1, b1,
+                               w2, b2, slopes, needs=(True,) * 8):
+    """Analytic gradient of :func:`fused_round_plain` given ``grad_out``
+    (..., n_sta, 2H). The pre-activations are recomputed from the inputs by
+    the plain twin's own ops, so where a pre-activation lies within
+    rounding of the PReLU kink the backward takes the plain round's side
+    of it (the kernel's forward may round to the other side). The station
+    mean's transpose is the transposed dense station matrix (``A[i, j] =
+    Σ_k w[i, k]·[nbr[i, k] = j]``): ``d zp = Aᵀ · d agg``. ``needs`` flags
+    (x, z, agg_src, w1, b1, w2, b2, slopes); returns their gradients in
+    that order, ``None`` where not needed."""
+    cx = x.shape[-1]
+    cz = z.shape[-1]
+    h = w1.shape[0]
+    u1, u2, hcat = _pre_activations(x, z, agg_src, mask, nbr, w, w1, b1, w2, b2,
+                                    slopes)
+    gh = grad_out * _dprelu(hcat, slopes[1])
+    gh1, gh2 = gh[..., :h], gh[..., h:]
+    g_x = g_z = g_src = g_w1 = g_b1 = g_w2 = g_b2 = g_sl = None
+    lead = tuple(range(gh.dim() - 1))
+    if needs[3]:
+        g_w1 = gh1.reshape(-1, h).t() @ u1.reshape(-1, u1.shape[-1])
+    if needs[4]:
+        g_b1 = gh1.sum(dim=lead)
+    if needs[5]:
+        g_w2 = gh2.reshape(-1, h).t() @ u2.reshape(-1, u2.shape[-1])
+    if needs[6]:
+        g_b2 = gh2.sum(dim=lead)
+    gu1 = gh1 @ w1[:, :cx + cz]          # mask takes no gradient
+    gu2 = gh2 @ w2[:, :cx + cz]
+    if needs[0]:
+        g_x = gu1[..., :cx] + gu2[..., :cx]
+    if needs[2]:
+        g_src = gu2[..., cx:]
+    g_zp = None
+    if needs[1] or needs[7]:
+        a_sta = neighbours_to_dense(nbr, w.to(x.dtype), x.shape[-2])
+        g_zp = torch.matmul(a_sta.t(), gu1[..., cx:])
+    if needs[1]:
+        g_z = g_zp * _dprelu(z, slopes[0])
+    if needs[7]:
+        g_sl = torch.stack(((g_zp * torch.clamp_max(z, 0.0)).sum(),
+                            (grad_out * torch.clamp_max(hcat, 0.0)).sum()))
+    return g_x, g_z, g_src, g_w1, g_b1, g_w2, g_b2, g_sl
+
+
+class FusedRound(torch.autograd.Function):
+    """:func:`fused_round` with a gradient. The forward launches the kernel
+    (CUDA tensors; it raises rather than fall back) or runs the plain twin
+    (CPU tensors), exactly as :func:`fused_round`, so ``fused_round.launches``
+    counts the forward launches. The backward is
+    :func:`fused_round_backward_plain`, PyTorch ops on the saved inputs: the
+    JAX package has no backward kernel (its trainer differentiates the plain
+    XLA round), so there is no TPU kernel to port for it; a hand-written
+    backward waits on a profile that shows this one holding the step back.
+    ``mask``, ``nbr`` and ``w`` take no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, z, agg_src, mask, nbr, w, w1, b1, w2, b2, slopes):
+        ctx.save_for_backward(x, z, agg_src, mask, nbr, w, w1, b1, w2, b2, slopes)
+        return fused_round(x, z, agg_src, mask, nbr, w, w1, b1, w2, b2, slopes)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, z, agg_src, mask, nbr, w, w1, b1, w2, b2, slopes = ctx.saved_tensors
+        n = ctx.needs_input_grad
+        needs = (n[0], n[1], n[2], n[6], n[7], n[8], n[9], n[10])
+        g_x, g_z, g_src, g_w1, g_b1, g_w2, g_b2, g_sl = fused_round_backward_plain(
+            grad_out.contiguous(), x, z, agg_src, mask, nbr, w, w1, b1, w2, b2,
+            slopes, needs)
+        return g_x, g_z, g_src, None, None, None, g_w1, g_b1, g_w2, g_b2, g_sl
 
 
 def fused_dual_round(x, agg_src, mask, a_sta, w1, b1, w2, b2, slopes):

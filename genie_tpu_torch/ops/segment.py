@@ -97,11 +97,17 @@ def aggregation_weights(nbr_idx, nbr_valid=None, dtype=torch.float32):
 def aggregation_matrix(nbr_idx, n: int, nbr_valid=None, dtype=torch.float32):
     """Row-normalized averaging matrix A (m, n): ``A[i, j] = 1/deg(i)`` iff j
     is a valid neighbour of i."""
-    m = nbr_idx.shape[0]
-    a = torch.zeros((m, n), dtype=dtype, device=nbr_idx.device)
-    rows = torch.arange(m, device=nbr_idx.device)[:, None].expand_as(nbr_idx)
-    a.index_put_((rows.reshape(-1), nbr_idx.long().reshape(-1)),
-                 aggregation_weights(nbr_idx, nbr_valid, dtype).reshape(-1),
+    return neighbours_to_dense(nbr_idx, aggregation_weights(nbr_idx, nbr_valid, dtype),
+                               n)
+
+
+def neighbours_to_dense(nbr, w, n: int):
+    """The dense (m, n) matrix of padded ``(nbr, w)`` lists, ``A[i, j] =
+    Σ_k w[i, k]·[nbr[i, k] = j]``: the inverse of :func:`dense_to_neighbours`."""
+    m = nbr.shape[0]
+    a = torch.zeros((m, n), dtype=w.dtype, device=w.device)
+    rows = torch.arange(m, device=w.device)[:, None].expand_as(nbr)
+    a.index_put_((rows.reshape(-1), nbr.long().reshape(-1)), w.reshape(-1),
                  accumulate=True)
     return a
 

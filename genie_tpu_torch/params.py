@@ -2,10 +2,12 @@
 
 ``load_flax_params`` reads a checkpoint pickle such as
 ``projects/NC_EHZ/run6/params.pkl`` (``{'params': {'params': tree},
-'opt_state', 'step'}``) without optax installed: the optimizer state
-references ``optax._src.*`` classes, which unpickle into an inert stub and
-are dropped. Only the weight tree is returned, as nested dicts of numpy
-arrays.
+'opt_state', 'step'}``) without optax installed. The optimizer state
+references ``optax._src.*`` classes: ``ScaleByAdamState`` unpickles into
+:class:`AdamState` with its ``count``, ``mu`` and ``nu`` kept,
+``EmptyState`` into an empty tuple, and any other optax class into an inert
+stub. ``load_flax_params`` returns the weight tree as nested dicts of numpy
+arrays; ``load_adam_state`` returns the Adam moments under the port's names.
 
 ``transplant`` maps that tree onto the port's ``state_dict`` names:
 
@@ -21,6 +23,9 @@ arrays.
   ``epicenter_spatial_coef``, ``depth_spatial_coef`` and the root-level
   ``bias``) keep their names (``_RAW_LEAVES``).
 
+:func:`to_flax` is the reverse of ``transplant``: a module's weights as a
+flax weight tree, which the JAX package's ``Detector.apply`` takes.
+
 ``load_pinn`` and ``load_magnitude_model`` read the two calibration
 artifacts of a project (``Grids/pinn_nc.pkl``, ``run6/mag_model_nc.pkl``),
 which are plain pickles of numpy arrays, into the port's modules.
@@ -30,13 +35,15 @@ from __future__ import annotations
 
 import pickle
 from pathlib import Path
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
 
 class _Inert:
-    """Stand-in for any optax class found in a checkpoint pickle."""
+    """Stand-in for an optax class found in a checkpoint pickle whose state
+    the port does not keep."""
 
     def __init__(self, *args, **kwargs):
         pass
@@ -49,10 +56,28 @@ def _inert_factory(*args, **kwargs):
     return _Inert()
 
 
+class AdamState(NamedTuple):
+    """The fields of optax's ``ScaleByAdamState``: the step count and the
+    first and second moments, each a flax-layout tree like the weights."""
+
+    count: Any
+    mu: Any
+    nu: Any
+
+
+class _EmptyState(NamedTuple):
+    """optax's ``EmptyState`` (the state of a stateless transform)."""
+
+
+_OPTAX_STATES = {"ScaleByAdamState": AdamState, "EmptyState": _EmptyState}
+
+
 class _NoOptaxUnpickler(pickle.Unpickler):
     def find_class(self, module, name):
         if module == "optax" or module.startswith("optax."):
-            # optimizer states are rebuilt by calling the class; the
+            if name in _OPTAX_STATES:
+                return _OPTAX_STATES[name]
+            # any other optax object is rebuilt by calling the class; the
             # result is discarded
             return _Inert if name[:1].isupper() else _inert_factory
         return super().find_class(module, name)
@@ -71,9 +96,10 @@ def _load_pickle(path) -> dict:
         return _NoOptaxUnpickler(f).load()
 
 
-def _weight_tree(blob) -> dict:
-    tree = blob["params"]
-    if "params" in tree:
+def _np_tree(tree) -> dict:
+    """A flax ``{'params': tree}`` or bare tree as nested dicts of float32
+    numpy arrays."""
+    if "params" in tree and isinstance(tree["params"], dict):
         tree = tree["params"]
 
     def to_np(d):
@@ -83,10 +109,48 @@ def _weight_tree(blob) -> dict:
     return to_np(tree)
 
 
+def _weight_tree(blob) -> dict:
+    return _np_tree(blob["params"])
+
+
 def load_flax_params(path) -> dict:
     """The ``['params']['params']`` weight tree of a flax checkpoint pickle,
     as nested dicts of float32 numpy arrays."""
     return _weight_tree(_load_pickle(path))
+
+
+def _find_adam(state):
+    """optax's ``(ScaleByAdamState, EmptyState)`` chain state, or the
+    port's ``{'count', 'mu', 'nu'}``."""
+    if isinstance(state, AdamState):
+        return state
+    if isinstance(state, (tuple, list)):
+        for s in state:
+            found = _find_adam(s)
+            if found is not None:
+                return found
+    if isinstance(state, dict) and {"count", "mu", "nu"} <= set(state):
+        return AdamState(state["count"], state["mu"], state["nu"])
+    return None
+
+
+def load_adam_state(path) -> dict:
+    """The Adam state of a checkpoint pickle: ``{'count': int, 'mu': sd,
+    'nu': sd}`` with ``mu``/``nu`` mapped onto the port's parameter names and
+    layouts exactly as ``transplant`` maps the weights (a ``Dense`` kernel's
+    moments are transposed like the kernel). Reads optax's
+    ``(ScaleByAdamState, EmptyState)`` and the port's own
+    ``{'count', 'mu', 'nu'}`` (``io.save_checkpoint``)."""
+    return _adam_state(_load_pickle(path), path)
+
+
+def _adam_state(blob, path) -> dict:
+    adam = _find_adam(blob.get("opt_state"))
+    if adam is None:
+        raise KeyError(f"{path}: no Adam state (count, mu, nu) in 'opt_state'")
+    return {"count": int(np.asarray(adam.count)),
+            "mu": transplant(_np_tree(adam.mu)),
+            "nu": transplant(_np_tree(adam.nu))}
 
 
 def flatten_tree(tree: dict, prefix: str = "") -> dict:
@@ -123,6 +187,26 @@ def transplant(flax_tree: dict) -> dict:
         else:
             raise KeyError(f"unrecognised flax leaf {path!r}")
     return sd
+
+
+def to_flax(model) -> dict:
+    """The reverse of :func:`transplant`: a module (or its ``state_dict``, or
+    any dict of tensors under the port's names) → a flax weight tree of
+    float32 numpy arrays. ``Linear.weight`` becomes ``kernel`` (transposed),
+    PReLU slopes stay scalar ``a``; other leaves keep their names."""
+    sd = model.state_dict() if isinstance(model, torch.nn.Module) else model
+    tree: dict = {}
+    for name, t in sd.items():
+        arr = t.detach().cpu().numpy().astype(np.float32) if isinstance(
+            t, torch.Tensor) else np.asarray(t, np.float32)
+        *path, leaf = name.split(".")
+        if leaf == "weight":
+            leaf, arr = "kernel", np.ascontiguousarray(arr.T)
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = arr
+    return tree
 
 
 def load_into(model: torch.nn.Module, flax_tree: dict) -> torch.nn.Module:

@@ -4,15 +4,16 @@ The plain PyTorch twin (what a CPU tensor runs) is held to the Pallas kernel
 in interpret mode and to its XLA reference at atol 2e-5 (the tolerance of
 tests/test_pallas_fused.py); the round-2 and association forms (z ≠ x,
 through the k-neighbour table) are held to the same expressions written with
-the JAX package's own ops. The CUDA kernel itself is held to the twin by a
-test that needs the card. JAX is imported inside the tests that compare
+the JAX package's own ops. The CUDA kernel itself is held to the twin, and
+``FusedRound``'s gradient on the card to autograd through the twin, by tests
+that need the card. JAX is imported inside the tests that compare
 with it, so the card's machine (no JAX) can run this file with ``-m cuda``."""
 
 import numpy as np
 import pytest
 import torch
 
-from genie_tpu_torch.ops.fused_round import (fused_dual_round, fused_round,
+from genie_tpu_torch.ops.fused_round import (FusedRound, fused_dual_round, fused_round,
                                              fused_round_plain)
 from genie_tpu_torch.ops.segment import (aggregation_matrix, aggregation_weights,
                                          dense_to_neighbours)
@@ -273,6 +274,49 @@ def test_cuda_kernel_matches_plain(n_sta, k, lead, offset):
         assert fused_round.launches == n0 + 1
         want = fused_round_plain(*args)
         assert float((got - want).abs().max()) <= 1e-4, (cx, cz, m, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["round1", "round2", "assoc"])
+def test_cuda_fused_round_function_launches_and_matches_autograd(form):
+    """Needs the card: under autograd ``FusedRound`` launches the kernel
+    once per forward, and its backward matches autograd through the plain
+    twin on the card within 1e-4 × each input's max |grad| (f32, TF32 off)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    cx, cz, m, h, same = {"round1": (30, 30, 4, 30, True),
+                          "round2": (60, 30, 4, 15, False),
+                          "assoc": (30, 30, 5, 30, False)}[form]
+    n_sta, k, rows = 374, 8, 40
+    nbr, valid = _knn_table(np.random.default_rng(0), n_sta, k)
+    nbr = torch.from_numpy(nbr).to(dev)
+    w = aggregation_weights(nbr, torch.from_numpy(valid).to(dev))
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).requires_grad_()
+
+    x = randn(rows, n_sta, cx)
+    z = x if same else randn(rows, n_sta, cz)
+    agg = randn(rows, n_sta, cz)
+    mask = (torch.rand((rows, n_sta, m), generator=g, device=dev) > 0.5).float()
+    d = cx + cz + m
+    ws = [randn(h, d, scale=0.2), randn(h), randn(h, d, scale=0.2), randn(h)]
+    slopes = torch.tensor([0.25, 0.1], device=dev, requires_grad=True)
+    args = (x, z, agg, mask, nbr, w, *ws, slopes)
+    leaves = [x] + ([] if same else [z]) + [agg, *ws, slopes]
+    g_out = torch.randn((rows, n_sta, 2 * h), generator=g, device=dev)
+    n0 = fused_round.launches
+    out = FusedRound.apply(*args)
+    assert fused_round.launches == n0 + 1 and out.requires_grad
+    got = torch.autograd.grad(out, leaves, g_out)
+    want = torch.autograd.grad(fused_round_plain(*args), leaves, g_out)
+    torch.cuda.synchronize()
+    assert fused_round.launches == n0 + 1       # the backward launches nothing
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
 
 
 @pytest.mark.cuda

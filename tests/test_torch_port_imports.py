@@ -52,7 +52,8 @@ def test_port_imports_no_jax_flax_optax_or_genie_tpu():
                 "genie_tpu_torch.models.magnitude",
                 "genie_tpu_torch.calibration.corrections",
                 "genie_tpu_torch.calibration.magnitude_scale",
-                "genie_tpu_torch.utils"):
+                "genie_tpu_torch.utils", "genie_tpu_torch.models.init",
+                "genie_tpu_torch.synth.generator", "genie_tpu_torch.train.trainer"):
         assert mod in res["modules"]
 
 
@@ -160,6 +161,38 @@ def test_run6_config_in_code_matches_yaml():
         for k, v in want[sec].items():
             g = got[sec][k]
             assert (list(g) if isinstance(g, tuple) else g) == v, (sec, k)
+
+
+def test_run6_train_config_in_code_matches_yaml():
+    """chip_smoke.py's [train] phase sets run6's synth and train blocks in
+    code; they must be exactly those of projects/NC_EHZ/run6/config.yaml."""
+    import yaml
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+
+    want = yaml.safe_load((ROOT / "projects/NC_EHZ/run6/config.yaml").read_text())
+    got = chip_smoke.run6_train_config().to_dict()
+    for sec in ("region", "velocity", "graph", "model", "synth", "train", "process"):
+        for k, v in want[sec].items():
+            g = got[sec][k]
+            assert (list(g) if isinstance(g, tuple) else g) == v, (sec, k)
+
+
+def test_run6_adam_state_loads_without_optax():
+    """The optimizer state of run6's pickle survives the optax-free
+    unpickler: count 20000 and the moments under the port's names."""
+    from genie_tpu_torch.models.detector import Detector
+    from genie_tpu_torch.params import AdamState, _load_pickle, load_adam_state
+
+    blob = _load_pickle(ROOT / "projects/NC_EHZ/run6/params.pkl")
+    assert isinstance(blob["opt_state"][0], AdamState)
+    st = load_adam_state(ROOT / "projects/NC_EHZ/run6/params.pkl")
+    assert st["count"] == 20000
+    names = {n for n, _ in Detector().named_parameters()}
+    assert set(st["mu"]) == names and set(st["nu"]) == names
+    assert all(bool((v >= 0).all()) for v in st["nu"].values())
+    assert float(st["mu"]["data_agg.l1_t1_2.weight"].abs().max()) > 0
 
 
 def test_flax_checkpoint_loads_without_optax():
