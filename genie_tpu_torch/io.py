@@ -19,10 +19,17 @@ plain pickles of numpy arrays in flax layout, the format
 the JAX package's orbax directories: orbax is not available where the port
 runs. The JAX package reads their weights with ``pickle`` +
 ``Detector.apply``, and the port reads both its own and ``nc_train.py``'s.
+
+The calibration artifacts (:func:`save_corrections`,
+:func:`save_magnitude_model`) are written in the layouts of
+``scripts/nc_calibrate.py`` and ``scripts/nc_magnitude.py --save``, which
+``scripts/nc_process.py --corrections/--mag-model`` and the port's
+``params.load_corrections``/``load_magnitude_model`` read.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import pickle
 import zipfile
@@ -207,3 +214,29 @@ def load_checkpoint(path, model, optimizer=None) -> int:
     if optimizer is not None:
         set_adam_state(optimizer, model, _adam_state(blob, path))
     return int(np.asarray(blob.get("step", 0)))
+
+
+# -- calibration artifacts ------------------------------------------------------
+
+def save_corrections(path, grid_cart, coefs, stats: dict):
+    """Travel-time corrections ``.npz``: ``grid_cart`` (n_grid, 3),
+    ``coefs`` (n_grid, n_sta, 2) and ``stats``, a JSON string."""
+    def arr(a):
+        return a.detach().cpu().numpy() if hasattr(a, "detach") else np.asarray(a)
+
+    np.savez_compressed(path, grid_cart=arr(grid_cart), coefs=arr(coefs),
+                        stats=json.dumps(stats))
+    return Path(path)
+
+
+def save_magnitude_model(path, model, grid_cart, dist_model, vald=None):
+    """Magnitude-model pickle: ``params`` (the flax variables ``{"params":
+    weights}``), ``grid_cart``, ``k``, ``n_sta``, ``vald`` (the holdout
+    summary) and ``dist_model`` (``fit_magnitude_distance_params``)."""
+    from genie_tpu_torch.params import to_flax
+
+    blob = {"params": {"params": to_flax(model)},
+            "grid_cart": np.asarray(grid_cart, np.float32), "k": int(model.k),
+            "n_sta": int(model.n_sta), "vald": vald, "dist_model": dist_model}
+    Path(path).write_bytes(pickle.dumps(blob))
+    return Path(path)

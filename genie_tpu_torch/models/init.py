@@ -1,7 +1,8 @@
 """Fresh weights for a model, as flax initialises them.
 
-Twin of ``model.init`` in ``init_train_state``
-(``genie_tpu/train/trainer.py:337-370``): flax ``Dense`` defaults, not
+Twins of ``model.init`` in ``init_train_state``
+(``genie_tpu/train/trainer.py:337-370``) and in ``train_graphdd``
+(``genie_tpu/relocation/graphdd.py:669``): flax ``Dense`` defaults, not
 ``nn.Linear``'s own initialisation, so a port run from scratch starts where
 a JAX run does (in distribution; the draws come from a ``torch.Generator``).
 """
@@ -25,6 +26,18 @@ def init_detector(model: nn.Module, generator: torch.Generator) -> nn.Module:
     ``lecun_normal`` (truncated normal, variance 1/fan_in), biases zero,
     PReLU slopes 0.25 and a read-in ``sum_gain`` 8.0. The generator must lie
     on the parameters' device."""
+    return _flax_defaults(model, generator)
+
+
+def init_graphdd(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Initialise a ``relocation.graphdd.GNNLocation`` in place with flax's
+    defaults, as :func:`init_detector`: ``lecun_normal`` kernels, zero
+    biases, PReLU slopes 0.25."""
+    return _flax_defaults(model, generator)
+
+
+@torch.no_grad()
+def _flax_defaults(model: nn.Module, generator: torch.Generator) -> nn.Module:
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "weight" and p.dim() == 2:
@@ -38,5 +51,5 @@ def init_detector(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif leaf == "sum_gain":
             p.fill_(8.0)
         else:
-            raise KeyError(f"init_detector: no flax default for {name!r}")
+            raise KeyError(f"no flax default for {name!r}")
     return model

@@ -23,19 +23,20 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from genie_tpu_torch.ops.fused_round import FusedRound
+from genie_tpu_torch.ops.fused_round import FusedRound, prelu
 from genie_tpu_torch.ops.segment import matmul_mean_src_axis
 
 
 class PReLU(nn.Module):
-    """torch-style PReLU: one learnable slope ``a``, init 0.25."""
+    """torch-style PReLU: one learnable slope ``a``, init 0.25, with JAX's
+    derivative at x = 0 (``ops.fused_round.prelu``)."""
 
     def __init__(self, init: float = 0.25):
         super().__init__()
         self.a = nn.Parameter(torch.tensor(float(init)))
 
     def forward(self, x):
-        return torch.clamp_min(x, 0.0) + self.a * torch.clamp_max(x, 0.0)
+        return prelu(x, self.a)
 
 
 def _prelus(module: nn.Module, n: int):

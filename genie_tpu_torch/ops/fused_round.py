@@ -39,8 +39,61 @@ from genie_tpu_torch.ops.segment import dense_to_neighbours, neighbours_to_dense
 MAX_SMEM_PER_BLOCK = 232448
 
 
-def _prelu(x, a):
-    return torch.clamp_min(x, 0.0) + a * torch.clamp_max(x, 0.0)
+# 0-dim CPU constants: they join CUDA ops as scalars, without a launch.
+_ZERO = torch.zeros(())
+_HALF = torch.tensor(0.5)
+
+
+def relu(x):
+    """``max(x, 0)`` with JAX's derivative at the tie: 0.5 at x = 0.
+    ``torch.maximum`` splits a tie's gradient evenly, in reverse and
+    forward mode (``clamp_min`` gives it all to x)."""
+    return torch.maximum(x, _ZERO.to(x.dtype))
+
+
+def prelu(x, a):
+    """``max(x, 0) + a·min(x, 0)``, the four ops of a ``clamp_min`` /
+    ``clamp_max`` PReLU and bit for bit its values, with JAX's derivative
+    at the tie: ``0.5·(1 + a)`` at x = 0 (the clamps would give ``1 + a``).
+    Exact zeros reach a PReLU wherever a zero-bias ``Linear`` meets an
+    all-zero row, as at flax-default initialisation. Where autograd records
+    the op, :class:`_PReLU` takes the gradient in 4-5 kernels (autograd
+    through ``maximum``/``minimum`` takes about 13)."""
+    if torch.is_grad_enabled() and (x.requires_grad or a.requires_grad):
+        return _PReLU.apply(x, a)
+    return _PReLU.forward(x, a)
+
+
+class _PReLU(torch.autograd.Function):
+    """:func:`prelu` with its derivative from :func:`_dprelu`, in reverse
+    and forward mode (``torch.func`` transforms pass through it)."""
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(x, a):
+        zero = _ZERO.to(x.dtype)
+        return torch.maximum(x, zero) + a * torch.minimum(x, zero)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+        ctx.save_for_forward(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, a = ctx.saved_tensors
+        gx = g * _dprelu(x, a) if ctx.needs_input_grad[0] else None
+        ga = ((g * torch.minimum(x, _ZERO.to(x.dtype))).sum_to_size(a.shape)
+              if ctx.needs_input_grad[1] else None)
+        return gx, ga
+
+    @staticmethod
+    def jvp(ctx, x_t, a_t):
+        x, a = ctx.saved_tensors
+        out = torch.zeros_like(x) if x_t is None else x_t * _dprelu(x, a)
+        if a_t is not None:
+            out = out + a_t * torch.minimum(x, _ZERO.to(x.dtype))
+        return out
 
 
 def fused_round_plain(x, z, agg_src, mask, nbr, w, w1, b1, w2, b2, slopes):
@@ -48,13 +101,13 @@ def fused_round_plain(x, z, agg_src, mask, nbr, w, w1, b1, w2, b2, slopes):
     (..., n_sta, Cz); mask (..., n_sta, M); nbr/w (n_sta, k); w1/w2
     ``Linear.weight`` layout (H, Cx+Cz+M); slopes (2,) = (a_sta, a_out).
     Returns (..., n_sta, 2H)."""
-    return _prelu(_pre_activations(x, z, agg_src, mask, nbr, w, w1, b1, w2, b2,
+    return prelu(_pre_activations(x, z, agg_src, mask, nbr, w, w1, b1, w2, b2,
                                    slopes)[2], slopes[1])
 
 
 def _pre_activations(x, z, agg_src, mask, nbr, w, w1, b1, w2, b2, slopes):
     """The plain twin up to its output PReLU: (u1, u2, [h1 ‖ h2])."""
-    zp = _prelu(z, slopes[0])
+    zp = prelu(z, slopes[0])
     agg_sta = (zp[..., nbr.long(), :] * w[..., None]).sum(dim=-2)
     u1 = torch.cat((x, agg_sta, mask), dim=-1)
     u2 = torch.cat((x, agg_src, mask), dim=-1)
@@ -156,8 +209,10 @@ fused_round.launches = 0
 
 
 def _dprelu(h, a):
-    """d PReLU(h)/dh as autograd takes it through :func:`_prelu`."""
-    return (h >= 0).to(h.dtype) + a * (h <= 0).to(h.dtype)
+    """d PReLU(h)/dh as autograd takes it through :func:`prelu`: 1 above
+    0, ``a`` below and ``0.5·(1 + a)`` at 0, as ``a + (1 - a)·H(h)`` with
+    the Heaviside step ``H(0) = 0.5``."""
+    return torch.addcmul(a, 1.0 - a, torch.heaviside(h, _HALF.to(h.dtype)))
 
 
 def fused_round_backward_plain(grad_out, x, z, agg_src, mask, nbr, w, w1, b1,

@@ -26,9 +26,10 @@ arrays; ``load_adam_state`` returns the Adam moments under the port's names.
 :func:`to_flax` is the reverse of ``transplant``: a module's weights as a
 flax weight tree, which the JAX package's ``Detector.apply`` takes.
 
-``load_pinn`` and ``load_magnitude_model`` read the two calibration
-artifacts of a project (``Grids/pinn_nc.pkl``, ``run6/mag_model_nc.pkl``),
-which are plain pickles of numpy arrays, into the port's modules.
+``load_pinn``, ``load_magnitude_model`` and ``load_corrections`` read the
+calibration artifacts of a project (``Grids/pinn_nc.pkl``,
+``run6/mag_model_nc.pkl``, ``run6/corrections_nc.npz``), plain pickles and
+npz files of numpy arrays, into the port's modules.
 """
 
 from __future__ import annotations
@@ -269,3 +270,15 @@ def load_magnitude_model(path, device=None) -> dict:
     return {"model": model.to(dev).requires_grad_(False), "grid_cart": grid_cart,
             "dist_model": blob.get("dist_model"), "k": model.k,
             "n_sta": model.n_sta}
+
+
+def load_corrections(path, base_trv_from_cart, device=None):
+    """``run6/corrections_nc.npz`` (``grid_cart``, ``coefs``) → a
+    :class:`TravelTimeCorrection` around ``base_trv_from_cart`` on
+    ``device`` (default ``cuda``)."""
+    from genie_tpu_torch.calibration.corrections import TravelTimeCorrection
+    from genie_tpu_torch.device import resolve_device
+
+    z = np.load(path)
+    return TravelTimeCorrection(base_trv_from_cart, z["grid_cart"], z["coefs"]).to(
+        resolve_device(device))

@@ -48,6 +48,7 @@ from genie_tpu_torch.graphs.build import (
 )
 from genie_tpu_torch.models.detector import GraphBundle, PickSet, QuerySet
 from genie_tpu_torch.models.init import init_detector
+from genie_tpu_torch.ops.fused_round import relu
 from genie_tpu_torch.synth.generator import WindowBatch, make_windows, synthesize_timeline
 
 
@@ -242,14 +243,14 @@ def _sensitivity(cfg: Config, ctx: DomainContext, wb_i: WindowBatch, arv_p, arv_
     part = torch.func.vmap(torch.func.jacfwd(t_of_x))(wb_i.x_qsrc[0]).detach()
     ip = wb_i.ipick[0].long()
     pm_col = wb_i.pick_mask[0][None, :, None].to(arv_p.dtype)
-    jp = torch.clamp_min(arv_p, 0.0)[..., None] * part[:, ip, 0, :] * pm_col
-    js = torch.clamp_min(arv_s, 0.0)[..., None] * part[:, ip, 1, :] * pm_col
+    jp = relu(arv_p)[..., None] * part[:, ip, 0, :] * pm_col
+    js = relu(arv_s)[..., None] * part[:, ip, 1, :] * pm_col
     J = torch.cat((jp, js), dim=1)                                     # (n_q, 2 n_pick, 3)
     G = torch.einsum("qpi,qpj->qij", J, J) / cfg.train.sensitivity_sig_d ** 2
     tr = torch.diagonal(G, dim1=1, dim2=2).sum(-1)
     eps = 1e-6 * (tr / 3.0 + 1.0)
     cov = torch.linalg.inv(G + eps[:, None, None] * torch.eye(3, device=G.device))
-    sigma = torch.sqrt(torch.clamp_min(torch.diagonal(cov, dim1=1, dim2=2), 0.0).sum(-1))
+    sigma = torch.sqrt(relu(torch.diagonal(cov, dim1=1, dim2=2)).sum(-1))
     ok = (tr > 1e-8).to(sigma.dtype)
     return ((sigma / 1e4) ** 2 * ok).sum() / torch.clamp_min(ok.sum(), 1.0)
 

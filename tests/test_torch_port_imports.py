@@ -53,7 +53,8 @@ def test_port_imports_no_jax_flax_optax_or_genie_tpu():
                 "genie_tpu_torch.calibration.corrections",
                 "genie_tpu_torch.calibration.magnitude_scale",
                 "genie_tpu_torch.utils", "genie_tpu_torch.models.init",
-                "genie_tpu_torch.synth.generator", "genie_tpu_torch.train.trainer"):
+                "genie_tpu_torch.synth.generator", "genie_tpu_torch.train.trainer",
+                "genie_tpu_torch.relocation", "genie_tpu_torch.relocation.graphdd"):
         assert mod in res["modules"]
 
 

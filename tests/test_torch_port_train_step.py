@@ -182,6 +182,32 @@ def test_loss_and_gradients_match_jax(setup, jax_loss_and_grads, sequential):
         assert err <= 1e-4 * scale, (k, err, scale)
 
 
+def test_loss_and_gradients_match_jax_at_init_weights(setup):
+    """The same batch at flax-default weights (``init_detector``, seed 4):
+    zero biases put exact zeros into PReLUs and into the sensitivity term's
+    clip, so every gradient leaf holds only if the port takes JAX's
+    derivative at those ties."""
+    s = setup
+    model = init_detector(Detector(src_chunk=5), torch.Generator().manual_seed(4))
+    params = {"params": jax.tree.map(jnp.asarray, to_flax(model))}
+
+    def loss(p):
+        return jax_loss_fn(JaxDetector(src_chunk=5), p, s["jctx"], s["jcfg"], s["jwb"],
+                           s["jtt"].from_cart)
+
+    (total_j, _), grads_j = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
+    total, _ = loss_fn(model, s["ctx"], s["cfg"], s["wb"], s["tt"].from_cart,
+                       backward=True)
+    np.testing.assert_allclose(float(total), float(total_j), rtol=1e-4)
+    got = flatten_tree(to_flax({n: p.grad for n, p in model.named_parameters()}))
+    want = flatten_tree(jax.tree.map(np.asarray, grads_j["params"]))
+    assert set(got) == set(want) and len(want) == 151
+    scale = max(float(np.abs(v).max()) for v in want.values())
+    bad = {k: float(np.abs(got[k] - want[k]).max()) for k in want
+           if float(np.abs(got[k] - want[k]).max()) > 1e-4 * scale}
+    assert not bad, (bad, scale)
+
+
 # -- Adam, checkpoints, weights ------------------------------------------------
 
 def _loader_with_optax(path):
