@@ -90,7 +90,32 @@ Phases (any failure exits non-zero):
      500, at least 1000, that fits 150 s, and prints the cut),
      ``relocate`` of every graph averaged per source: the median 3-D error
      of the relocated sources must fall under 0.7 × their initial median.
-     Seconds per step, peak memory and one profiled step.
+     Seconds per step, peak memory and one profiled step;
+ 11. ``[project]``: a project built from its files, as a user's first
+     commands for a region do (``init_project.py``, the FMM build,
+     ``nc_pinn.py``), at run6 width in a temporary directory: a
+     stations.txt of 374 stations drawn from ``--seed`` (run6's lat/lon
+     range, elevations U[0, 1500] m), ``read_stations_txt`` and
+     ``init_project`` (5 grids × 500 nodes, 800 Lloyd steps each, on the
+     card; every node finite and inside the padded region); ``fmm_grid_box``
+     of run6's config must be the box of ``pinn_nc.pkl`` (x_scale 504,000 m,
+     centre within 1 m, shape 239 × 336 × 34); ``build_fmm_tables`` for 8
+     of the 374 stations over a spawn pool of up to 8 workers; the
+     production PINN against those fresh tables on 4096 importance samples
+     per station (median |Δt| ≤ 0.15 s; the pickle's own cross-validation
+     median is 0.033 s); the PINN loss card vs CPU at flax-default weights
+     on 4096 bank samples (loss and parts within 1e-4 relative, the eikonal
+     gradient within 1e-4 × its max, each gradient leaf within 1e-3 × its
+     own max |g| + 1e-5 × the largest); ``nc_pinn.py``'s loop from scratch
+     (batch 16,384, 30,000 + 2,048 samples per station, one held-out
+     station per 20, lr 1e-3 cosine over 40,000 steps to 0.02, clip 1.0),
+     cut by a 50-step probe to the largest multiple of 500 steps (at least
+     1000) that fits 60 s: every loss finite and the data term of the last
+     100 steps under half its first value; val / cross-val |Δt|, velocity
+     R², ms per step, peak memory and a profiled step; the artifact saved
+     to the project's ``Grids/``, read back by ``make_trv`` (times within
+     1e-6 s of the trained model's) and ``domain_from_project`` (5 × 500 ×
+     374 × 2 finite grid tables).
 
 It prints per-stage times, event counts, launches, peak memory, the card's
 name and power limit, a JSON line describing every kernel, and as its last
@@ -103,6 +128,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -132,9 +158,9 @@ def fail(msg: str):
 
 def run6_config():
     """The inference settings of ``projects/NC_EHZ/run6/config.yaml``, set
-    in code (no YAML package needed): the region and the station pad
-    differ from the ``Config`` defaults; every graph, model and process
-    value of that file equals its default."""
+    in code (no YAML package needed): the region, the station pad and the
+    FMM spacing differ from the ``Config`` defaults; every graph, model and
+    process value of that file equals its default."""
     from genie_tpu_torch.config import Config
 
     cfg = Config()
@@ -153,6 +179,7 @@ def run6_config():
     cfg.graph.k_spatial_attn = 10
     cfg.graph.k_pick_pairs = 16
     cfg.process.n_query_grid = 10000
+    cfg.travel_time.dx = 1500.0
     return cfg
 
 
@@ -1096,10 +1123,10 @@ def relocate_phase(ctx, trv_h, pinn, seed: int, dev="cuda", full_steps: int = 30
     from genie_tpu_torch.models.init import init_graphdd
     from genie_tpu_torch.params import flatten_tree, load_pinn, to_flax
     from genie_tpu_torch.relocation.graphdd import (GNNLocation, attach_reference,
-                                                    build_catalog_data,
-                                                    clip_by_global_norm_, graph_to,
+                                                    build_catalog_data, graph_to,
                                                     make_dd_loss, make_relocation_graphs,
                                                     relocate, train_graphdd)
+    from genie_tpu_torch.train.optim import clip_by_global_norm_
 
     rng = np.random.default_rng(seed + 8)
     sta = ctx.sta_cart.cpu().numpy()
@@ -1261,6 +1288,270 @@ def relocate_phase(ctx, trv_h, pinn, seed: int, dev="cuda", full_steps: int = 30
     return summary
 
 
+# -- phase 11 --------------------------------------------------------------
+PINN_CENTER = (761.53, 2802.07, -24632.12)   # Grids/pinn_nc.pkl's box
+PINN_X_SCALE = 504000.0
+PINN_SHAPE = (239, 336, 34)
+
+
+def _fmm_shard(args):
+    """One worker of the FMM pool: ``build_fmm_tables`` for its stations."""
+    from genie_tpu_torch.workflow import build_fmm_tables
+
+    cfg, proj, sta_lla, out_dir, idxs = args
+    t0 = time.time()
+    build_fmm_tables(cfg, proj, sta_lla, out_dir, station_indices=idxs, verbose=False)
+    return time.time() - t0
+
+
+def project_phase(pinn, seed: int, dev="cuda", n_sta: int = 374, n_fmm: int = 8,
+                  n_steps_grids: int = 800, batch: int = 16384, per_sta: int = 30000,
+                  full_steps: int = 40000, budget_s: float = 60.0, n_check: int = 4096,
+                  workers: int = 8):
+    """Phase 11, ``[project]``: a project built from its files at run6
+    width: ``init_project`` from a stations.txt, the FMM box against
+    ``pinn_nc.pkl``'s scales, ``build_fmm_tables`` over a process pool,
+    the production PINN against the fresh tables, the PINN loss card vs
+    CPU, ``nc_pinn.py``'s training loop cut to ``budget_s``, the artifact
+    read back by ``make_trv`` and ``domain_from_project``."""
+    import multiprocessing
+
+    import torch
+
+    from genie_tpu_torch.io import save_pinn
+    from genie_tpu_torch.models.init import init_pinn
+    from genie_tpu_torch.models.travel_time_pinn import (
+        TravelTimePN, TravelTimesPN, eikonal_gradient, importance_sample_volume,
+        make_pinn_loss, train_pinn)
+    from genie_tpu_torch.native import fmm
+    from genie_tpu_torch.params import _load_pickle, flatten_tree, to_flax
+    from genie_tpu_torch.setup.project import init_project, read_stations_txt
+    from genie_tpu_torch.train.optim import cosine_decay_schedule
+    from genie_tpu_torch.workflow import (domain_from_project, fmm_grid_box, make_trv,
+                                          pinn_bank_sampler, pinn_error_stats,
+                                          pinn_sample_bank, pinn_velocity_prior,
+                                          pinn_velocity_r2)
+
+    cfg = run6_config()
+    t_phase = time.time()
+    tmp = tempfile.TemporaryDirectory()
+    root = Path(tmp.name) / cfg.region.name
+    root.mkdir()
+
+    # 1. the project from a stations.txt of stations drawn from the seed
+    rng = np.random.default_rng(seed + 11)
+    lat = rng.uniform(*cfg.region.lat_range, n_sta)
+    lon = rng.uniform(*cfg.region.lon_range, n_sta)
+    elev = rng.uniform(0.0, 1500.0, n_sta)
+    (root / "stations.txt").write_text("".join(
+        f"S{i:03d} {lat[i]:.6f} {lon[i]:.6f} {elev[i]:.1f}\n" for i in range(n_sta)))
+    t0 = time.time()
+    sta_lla, names = read_stations_txt(root / "stations.txt")
+    dirs, proj, grids = init_project(root, cfg, sta_lla=sta_lla, sta_names=names,
+                                     n_steps_grids=n_steps_grids, seed=seed, device=dev)
+    init_s = time.time() - t0
+    lo_r = np.array([cfg.region.lat_range_extend[0], cfg.region.lon_range_extend[0],
+                     cfg.region.depth_range[0]])
+    hi_r = np.array([cfg.region.lat_range_extend[1], cfg.region.lon_range_extend[1],
+                     cfg.region.depth_range[1]])
+    tol = np.array([1e-4, 1e-4, 1.0])    # degrees, degrees, metres
+    inside = bool(np.isfinite(grids).all() and (grids >= lo_r - tol).all()
+                  and (grids <= hi_r + tol).all())
+    print("[project] init " + json.dumps({
+        "stations": len(sta_lla), "grids": list(grids.shape), "lloyd_steps": n_steps_grids,
+        "seconds": init_s, "nodes_inside_padded_region": inside}), flush=True)
+    if not inside:
+        fail("[project] init_project gave nodes that are not finite or lie outside "
+             "the padded region")
+
+    # 2. the FMM box of run6's config is the box of pinn_nc.pkl
+    lo, shape, h = fmm_grid_box(cfg, proj)
+    extent = np.asarray(shape) * h
+    center = lo + extent / 2
+    box = {"shape": list(shape), "cells": int(np.prod(shape)), "h": h,
+           "x_scale": float(extent.max()), "center": center.tolist(),
+           "center_err_m": float(np.abs(center - np.asarray(PINN_CENTER)).max())}
+    print("[project] box " + json.dumps(box), flush=True)
+    if not (tuple(shape) == PINN_SHAPE and box["x_scale"] == PINN_X_SCALE
+            and box["center_err_m"] <= 1.0):
+        fail(f"[project] fmm_grid_box {box} is not the box of {PINN.name}")
+
+    # 3. FMM tables of the first n_fmm stations over a spawn pool (the
+    #    solver is built once, before the workers start)
+    fmm.build()
+    tt_dir = dirs["travel_times"]
+    n_workers = max(1, min(workers, n_fmm, len(os.sched_getaffinity(0))))
+    shards = [(cfg, proj, sta_lla, tt_dir, list(range(j, n_fmm, n_workers)))
+              for j in range(n_workers)]
+    t0 = time.time()
+    with multiprocessing.get_context("spawn").Pool(n_workers) as pool:
+        shard_s = pool.map(_fmm_shard, shards)
+    fmm_s = time.time() - t0
+    tables = [tt_dir / f"travel_time_grid_station_{j}.npz" for j in range(n_fmm)]
+    if not all(f.exists() for f in tables):
+        fail("[project] build_fmm_tables left stations without a table")
+    print("[project] fmm " + json.dumps({
+        "stations": n_fmm, "of": n_sta, "workers": n_workers, "wall_s": fmm_s,
+        "worker_s": shard_s, "worker_s_per_station": sum(shard_s) / n_fmm,
+        "cells_per_volume": box["cells"]}), flush=True)
+
+    # 4. the production PINN against the fresh tables
+    sta_cart = proj.to_cart_np(sta_lla).astype(np.float32)
+    rng4 = np.random.default_rng(seed + 12)
+    chk = ([], [], [])
+    for j, f in enumerate(tables):
+        z = np.load(f)
+        src, t = importance_sample_volume(rng4, z["Tp"], z["Ts"], z["origin"],
+                                          float(z["h"]), sta_cart[j], n_check)
+        for acc, a in zip(chk, (np.broadcast_to(sta_cart[j], (n_check, 3)), src, t)):
+            acc.append(a)
+    prod = pinn_error_stats(pinn, *(np.concatenate(a) for a in chk))
+    prod_ref = _load_pickle(PINN)["metrics"]["cross_val"]["median_s"]
+    print("[project] production PINN vs fresh FMM " + json.dumps({
+        "samples": n_fmm * n_check, **prod, "pickle_cross_val_median_s": prod_ref}),
+        flush=True)
+    if not prod["median_s"] <= 0.15:
+        fail(f"[project] production PINN vs fresh FMM median |dt| {prod['median_s']} s "
+             f"> 0.15 s")
+
+    # 5. the bank, and the loss card vs CPU at flax-default weights
+    t0 = time.time()
+    bank = pinn_sample_bank(cfg, sta_cart[:n_fmm], tables, np.random.default_rng(seed),
+                            per_sta=per_sta)
+    bank_s = time.time() - t0
+    scales = bank.scales
+    prior = pinn_velocity_prior(cfg, scales)
+    model_cpu = init_pinn(TravelTimesPN(), torch.Generator().manual_seed(seed))
+    rows = np.random.default_rng(seed + 13).integers(0, len(bank.t), n_check)
+    res = {}
+    for tag, d in (("cuda", dev), ("cpu", "cpu")):
+        model = copy.deepcopy(model_cpu).to(d)
+        sta_n, src_n, t_n = (torch.as_tensor(a[rows], device=d)
+                             for a in (bank.sta, bank.src, bank.t))
+        sc = scales.to(d)
+        total, parts = make_pinn_loss(model, sc, v_init_fn=prior)(sta_n, src_n, t_n)
+        total.backward()
+        eik, _ = eikonal_gradient(model, sta_n, src_n, sc.conversion_factor, sc.v_mean,
+                                  create_graph=False)
+        res[tag] = ({"total": float(total.detach()),
+                     **{k: float(v.detach()) for k, v in parts.items()}},
+                    eik.cpu().numpy(),
+                    flatten_tree(to_flax({n: p.grad for n, p in model.named_parameters()})))
+    (l_d, e_d, g_d), (l_c, e_c, g_c) = res["cuda"], res["cpu"]
+    loss_rel = {k: abs(l_d[k] - l_c[k]) / max(abs(l_c[k]), 1e-30) for k in l_c}
+    eik_err = float(np.abs(e_d - e_c).max() / np.abs(e_c).max())
+    err = {k: float(np.abs(g_d[k] - g_c[k]).max()) for k in g_c}
+    own = {k: err[k] / max(float(np.abs(g_c[k]).max()), 1e-30) for k in g_c}
+    largest = max(float(np.abs(v).max()) for v in g_c.values())
+    over = sorted(k for k in g_c if err[k] > 1e-3 * float(np.abs(g_c[k]).max())
+                  + 1e-5 * largest)
+    worst = max(own, key=own.get)
+    print("[project-check] " + json.dumps({
+        "bank_samples": len(bank.t), "bank_stations": n_fmm - len(range(0, n_fmm, 20)),
+        "bank_s": bank_s, "batch": n_check, "loss_cuda": l_d, "loss_cpu": l_c,
+        "max_loss_rel": max(loss_rel.values()), "eikonal_err_over_max": eik_err,
+        "leaves": len(own), "max_rel_grad_err_own_max": own[worst], "worst_leaf": worst,
+        "max_grad_err_over_largest_g": max(err.values()) / largest,
+        "leaves_over_gate": over}), flush=True)
+    if not (all(np.isfinite(v) for v in l_d.values())
+            and max(loss_rel.values()) <= 1e-4):
+        fail(f"[project] PINN loss on the card {l_d} vs the CPU {l_c}")
+    if not eik_err <= 1e-4:
+        fail(f"[project] eikonal gradient card vs CPU {eik_err} of its max > 1e-4")
+    if over:
+        fail(f"[project] PINN gradients of {over} off by more than 1e-3 of their own "
+             f"max |g| + 1e-5 of the largest")
+
+    # 6. nc_pinn.py's loop: cosine over full_steps, cut by a 50-step probe
+    sample_fn = pinn_bank_sampler(bank, dev)
+    sched = cosine_decay_schedule(1e-3, full_steps, alpha=0.02)
+
+    def train(n, seed_):
+        return train_pinn(torch.Generator(device=dev).manual_seed(seed_), TravelTimesPN(),
+                          scales, sample_fn, n_steps=n, batch=batch, lr=sched,
+                          v_init_fn=prior, device=dev)
+
+    _, first_s, _ = _timed(lambda: train(1, seed + 1))
+    _, probe_s, _ = _timed(lambda: train(50, seed + 1))
+    per_step = (probe_s - first_s) / 49
+    n_steps = full_steps
+    if per_step * full_steps > budget_s:
+        n_steps = max(1000, int(budget_s / per_step) // 500 * 500)
+        print(f"[project] reduced: PINN steps {full_steps} -> {n_steps} "
+              f"(probe {per_step * 1e3:.2f} ms/step, budget {budget_s:.0f} s)", flush=True)
+    (model, hist), train_s, peak = _timed(lambda: train(n_steps, seed))
+    hist = {k: v.cpu().numpy() for k, v in hist.items()}
+    finite = bool(all(np.isfinite(v).all() for v in hist.values()))
+    data0, data_end = float(hist["data"][0]), float(hist["data"][-100:].mean())
+    trv = TravelTimePN(model.requires_grad_(False), scales.to(dev), projection=proj)
+    metrics = {"val": pinn_error_stats(trv, *bank.val),
+               "cross_val": pinn_error_stats(trv, *bank.cross_val),
+               "velocity_r2": np.asarray(pinn_velocity_r2(
+                   model, cfg, bank, np.random.default_rng(seed + 14))).tolist()}
+
+    # one more step under the profiler, on a copy of the trained weights
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.time()
+        train_pinn(None, copy.deepcopy(model).requires_grad_(True), scales, sample_fn,
+                   n_steps=1, batch=batch, lr=sched, v_init_fn=prior, keep_weights=True,
+                   device=dev)
+        torch.cuda.synchronize()
+        wall_p = time.time() - t1
+    prof_sum = summarize_profile(prof, wall_p, "profile pinn", ranges=(
+        "Optimizer.step#Adam.step", "Optimizer.zero_grad#Adam.zero_grad"))
+    summary = {
+        "bank_samples": len(bank.t), "batch": batch, "steps": n_steps,
+        "first_call_1_step_s": first_s, "probe_s_per_step": per_step,
+        "steady_ms_per_step": (train_s - first_s) / (n_steps - 1) * 1e3,
+        "train_seconds": train_s, "max_memory_allocated_bytes": peak,
+        "peak_gib": peak / 2**30, "losses_finite": finite,
+        "data_first": data0, "data_last100_mean": data_end,
+        "loss_last": float(hist["total"][-1]), **metrics,
+        "profiled_step_wall_s": wall_p,
+        "profiled_step_device_ms": None if prof_sum is None else prof_sum["device_ms"],
+        "profiled_step_busy_share": (None if prof_sum is None
+                                     else prof_sum["device_ms"] / 1e3 / wall_p)}
+    print("[project] pinn " + json.dumps(summary), flush=True)
+    if not finite:
+        fail("[project] a PINN training loss is not finite")
+    if not data_end < 0.5 * data0:
+        fail(f"[project] PINN data term {data_end} over its last 100 steps is not under "
+             f"half its first value {data0}")
+
+    # 7. the artifact, read back, and the project's domain context
+    t0 = time.time()
+    path = save_pinn(dirs["grids"] / "pinn_nc.pkl", model, scales, metrics)
+    trv_file = make_trv(cfg, proj, path, device=dev)
+    grid_t = torch.as_tensor(proj.to_cart_np(grids[0]).astype(np.float32), device=dev)
+    sta_t = torch.as_tensor(sta_cart, device=dev)
+    with torch.no_grad():
+        dt = float((trv_file.from_cart(sta_t, grid_t) - trv.from_cart(sta_t, grid_t))
+                   .abs().max())
+    ctx, _, _ = domain_from_project(root, cfg, trv=trv_file, device=dev)
+    torch.cuda.synchronize()
+    dom_s = time.time() - t0
+    shape_ok = tuple(ctx.trv_grids.shape) == (cfg.graph.n_grids,
+                                              cfg.graph.n_spatial_nodes, n_sta, 2)
+    finite_ok = bool(torch.isfinite(ctx.trv_grids).all())
+    print("[project] artifact " + json.dumps({
+        "path": str(path.relative_to(root)), "bytes": path.stat().st_size,
+        "make_trv_vs_model_max_abs_dt_s": dt, "trv_grids": list(ctx.trv_grids.shape),
+        "trv_grids_finite": finite_ok, "max_t_s": float(ctx.trv_grids.max()),
+        "seconds": dom_s}), flush=True)
+    if not dt <= 1e-6:
+        fail(f"[project] the artifact read by make_trv differs from the trained model "
+             f"by {dt} s")
+    if not (shape_ok and finite_ok):
+        fail(f"[project] domain_from_project gave trv_grids {tuple(ctx.trv_grids.shape)}, "
+             f"finite {finite_ok}")
+    tmp.cleanup()
+    print(f"[project] phase {time.time() - t_phase:.1f} s", flush=True)
+    return summary
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1365,6 +1656,11 @@ def main():
     calibrate_phase(ctx, pinn, args.seed)
     relocate_phase(ctx, trv, pinn, args.seed)
     launches_cr = fused_round.launches
+    torch.cuda.empty_cache()
+    fused_round.launches = 0
+    project_phase(pinn, args.seed)
+    print(f"[project] fused_round launches {fused_round.launches} (the path runs no "
+          f"detector)", flush=True)
     print(f"[card] {card}")
     print(f"[total] {time.time() - t_all:.1f} s")
 

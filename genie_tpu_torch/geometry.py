@@ -1,10 +1,11 @@
 """Geodetic coordinate transforms and the local Cartesian projection.
 
 Port of ``genie_tpu/geometry.py``: WGS84 ``lla2ecef``/``ecef2lla`` on torch
-tensors (differentiable, any device) with float64 numpy host twins, and the
-closed-form local ENU :class:`Projection` (+x east, +y north, +z up, centred
-on the region). Positions are ``(..., 3)`` arrays of (lat deg, lon deg,
-depth m; positive above sea level).
+tensors (differentiable, any device) with float64 numpy host twins, the
+Euler-angle :func:`rotation_matrix`, and the closed-form local ENU
+:class:`Projection` (+x east, +y north, +z up, centred on the region; the
+reference's ``ftrns1``/``ftrns2`` names too). Positions are ``(..., 3)``
+arrays of (lat deg, lon deg, depth m; positive above sea level).
 """
 
 from __future__ import annotations
@@ -80,6 +81,20 @@ def ecef2lla_np(x, a: float = WGS84_A, e: float = WGS84_E):
     return np.stack((np.rad2deg(lat), np.rad2deg(lon), alt), axis=-1)
 
 
+def rotation_matrix(a, b, c):
+    """Euler-angle (z-y-x intrinsic) 3×3 rotation of the angles ``a``,
+    ``b``, ``c`` (radians; numbers or 0-dim tensors), torch."""
+    a, b, c = (torch.as_tensor(v, dtype=torch.float32) for v in (a, b, c))
+    sa, ca = torch.sin(a), torch.cos(a)
+    sb, cb = torch.sin(b), torch.cos(b)
+    sc, cc = torch.sin(c), torch.cos(c)
+    return torch.stack((
+        torch.stack((cb * cc, sa * sb * cc - ca * sc, ca * sb * cc + sa * sc)),
+        torch.stack((cb * sc, sa * sb * sc + ca * cc, ca * sb * sc - sa * cc)),
+        torch.stack((-sb, sa * cb, ca * cb)),
+    ))
+
+
 def fit_projection(center_latlon, spherical: bool = False):
     """``(rbest, mn)`` with ``project = rbest @ (lla2ecef(x) - mn)``: rows of
     ``rbest`` are the ENU unit vectors at the region centre. ``mn`` is
@@ -141,3 +156,10 @@ class Projection:
     def to_lla_np(self, x):
         return ecef2lla_np(np.asarray(x, np.float64) @ self.rbest + self.mn,
                            a=self._a, e=self._e)
+
+    # the reference's names for the two directions
+    def ftrns1(self, x):
+        return self.to_cart(x)
+
+    def ftrns2(self, x):
+        return self.to_lla(x)

@@ -1,12 +1,17 @@
-"""Graph construction: kNN tables, time pointers, pick pairs, edge features.
+"""Graph construction: k-means-packed source grids, kNN tables, time
+pointers, pick pairs, edge features.
 
-Port of ``genie_tpu/graphs/build.py:26-51, 228-302``. Tables are torch
-tensors on the device of their inputs. ``torch.topk`` may order equal keys
-differently from ``jax.lax.top_k``, so tables agree with the JAX package as
-sets; every consumer is invariant to the order within a row. Of the k-means
-packing family only :func:`kmeans_packing` (the inference query grid) is
-ported; its draws come from a ``torch.Generator`` and differ from
-``jax.random``'s.
+Port of ``genie_tpu/graphs/build.py``. Tables are torch tensors on the
+device of their inputs. ``torch.topk`` may order equal keys differently
+from ``jax.lax.top_k``, so tables agree with the JAX package as sets; every
+consumer is invariant to the order within a row.
+
+The k-means packing family (:54-226) draws from a ``torch.Generator``, so
+its nodes differ from the JAX package's (which draws from a JAX key) but
+not in distribution. Each variant is a draw (``*_draws``: the initial
+nodes and every Lloyd batch, ``(n_steps, n_batch, 3)``, in one go on the
+generator's device) followed by the deterministic
+:func:`kmeans_from_draws`, so a test can feed JAX's draws to the steps.
 """
 
 from __future__ import annotations
@@ -46,6 +51,191 @@ def kmeans_packing(generator, scale_x, offset_x, n_clusters: int, to_cart,
     for _ in range(n_steps):
         v = kmeans_step(v, uniform(n_batch), to_cart, w, lr)
     return v
+
+
+def kmeans_from_draws(v, xs, to_cart, weight, lr: float = 0.01):
+    """The Lloyd iterations of a packing: one :func:`kmeans_step` per batch
+    of ``xs`` (``(n_steps, n_batch, 3)``), from the nodes ``v``."""
+    for x in xs:
+        v = kmeans_step(v, x, to_cart, weight, lr)
+    return v
+
+
+def _f32(a, dev):
+    return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+
+def _uniform(generator, lead, scale_x, offset_x):
+    return (torch.rand((*lead, 3), generator=generator, device=generator.device)
+            * scale_x + offset_x)
+
+
+def kmeans_packing_fit_sources_draws(generator, ref_sources_cart, scale_x, offset_x,
+                                     n_clusters: int, to_cart, blur: float = 15e3,
+                                     frac_reference: float = 0.5, n_batch: int = 3000,
+                                     n_steps: int = 1000):
+    """Draws of :func:`kmeans_packing_fit_sources`: each set mixes
+    ``frac_reference`` Gaussian-blurred (σ ``blur``) reference sources with
+    uniform box draws projected by ``to_cart``. Returns (v0, xs), Cartesian."""
+    dev = generator.device
+    ref = _f32(ref_sources_cart, dev)
+    scale_x, offset_x = _f32(scale_x, dev), _f32(offset_x, dev)
+
+    def sample(lead, n):
+        n_ref = int(frac_reference * n)
+        idx = torch.randint(0, ref.shape[0], (*lead, n_ref), generator=generator,
+                            device=dev)
+        pts_ref = ref[idx] + blur * torch.randn((*lead, n_ref, 3), generator=generator,
+                                                device=dev)
+        pts_uni = _uniform(generator, (*lead, n - n_ref), scale_x, offset_x)
+        return torch.cat((pts_ref, to_cart(pts_uni)), dim=-2)
+
+    return sample((), n_clusters), sample((n_steps,), n_batch)
+
+
+def kmeans_packing_fit_sources(generator, ref_sources_cart, scale_x, offset_x,
+                               n_clusters: int, to_cart, blur: float = 15e3,
+                               frac_reference: float = 0.5, n_batch: int = 3000,
+                               n_steps: int = 1000, lr: float = 0.01):
+    """Pack nodes around a reference catalog: Lloyd iterations in Cartesian
+    space over a mixture of Gaussian-blurred reference source positions and
+    uniform background draws. Returns (n_clusters, 3) Cartesian nodes."""
+    v, xs = kmeans_packing_fit_sources_draws(generator, ref_sources_cart, scale_x,
+                                             offset_x, n_clusters, to_cart, blur,
+                                             frac_reference, n_batch, n_steps)
+    return kmeans_from_draws(v, xs, lambda a: a, 1.0, lr)
+
+
+def gaussian_kde_sampler(points, bandwidth: float):
+    """``sample(generator, n)`` from a Gaussian KDE over ``points`` (n, d):
+    a random support point plus N(0, bandwidth), on the generator's
+    device (sklearn ``KernelDensity.sample``)."""
+    pts = torch.as_tensor(np.asarray(points, np.float32))
+
+    def sample(generator, n: int):
+        dev = generator.device
+        idx = torch.randint(0, pts.shape[0], (n,), generator=generator, device=dev)
+        return pts.to(dev)[idx] + bandwidth * torch.randn(
+            (n, pts.shape[1]), generator=generator, device=dev)
+
+    return sample
+
+
+def kmeans_packing_with_density_draws(generator, density_sample, scale_x, offset_x,
+                                      n_clusters: int, frac: float = 0.75,
+                                      n_batch: int = 3000, n_steps: int = 1000):
+    """Draws of :func:`kmeans_packing_with_density`: the first ``frac`` of
+    each set are ``density_sample(generator, n) -> (n, 2)`` lat/lon draws
+    with uniform depths, the rest uniform over the box; a density draw
+    outside the box falls back to its uniform draw. Returns (v0, xs)."""
+    dev = generator.device
+    scale_x, offset_x = _f32(scale_x, dev), _f32(offset_x, dev)
+    lo, hi = offset_x[:2], offset_x[:2] + scale_x[:2]
+
+    def mixture(lead, n, n_d):
+        m = int(np.prod(lead))
+        xy = density_sample(generator, m * n_d).reshape(*lead, n_d, 2)
+        z = (torch.rand((*lead, n_d, 1), generator=generator, device=dev)
+             * scale_x[2] + offset_x[2])
+        dense = torch.cat((xy, z), dim=-1)
+        uni = _uniform(generator, (*lead, n), scale_x, offset_x)
+        ok = ((dense[..., :2] >= lo) & (dense[..., :2] <= hi)).all(-1, keepdim=True)
+        return torch.cat((torch.where(ok, dense, uni[..., :n_d, :]), uni[..., n_d:, :]),
+                         dim=-2)
+
+    return (mixture((), n_clusters, int(frac * n_clusters)),
+            mixture((n_steps,), n_batch, int(frac * n_batch)))
+
+
+def kmeans_packing_with_density(generator, density_sample, scale_x, offset_x,
+                                n_clusters: int, to_cart, weight=None,
+                                frac: float = 0.75, n_batch: int = 3000,
+                                n_steps: int = 1000, lr: float = 0.01):
+    """Density-weighted node packing (the reference's
+    ``kmeans_packing_weight_vector_with_density``): Lloyd batches mix
+    ``density_sample`` draws with uniform box draws
+    (:func:`kmeans_packing_with_density_draws`); ``weight`` re-weights the
+    Cartesian axes. Returns (n_clusters, 3) lat/lon/depth nodes."""
+    v, xs = kmeans_packing_with_density_draws(generator, density_sample, scale_x,
+                                              offset_x, n_clusters, frac, n_batch,
+                                              n_steps)
+    w = torch.ones(3, device=v.device) if weight is None else _f32(weight, v.device)
+    return kmeans_from_draws(v, xs, to_cart, w, lr)
+
+
+def _fibonacci_lattice(n: int):
+    """(n, 3) unit-sphere Fibonacci lattice, float32 numpy."""
+    i = np.arange(n) + 0.5
+    phi = np.arccos(1 - 2 * i / n)
+    golden = 2 * np.pi / ((1 + 5**0.5) / 2)
+    th = golden * (np.arange(n) + 0.5)
+    return np.stack((np.cos(th) * np.sin(phi), np.sin(th) * np.sin(phi), np.cos(phi)),
+                    axis=1).astype(np.float32)
+
+
+def kmeans_packing_spherical_draws(generator, scale_x, offset_x, n_clusters: int,
+                                   n_batch: int = 3000, n_steps: int = 1000,
+                                   izero: float = 0.65):
+    """Draws of :func:`kmeans_packing_spherical`: each set is a randomly
+    rotated Fibonacci lattice mapped to (lat, lon), with depths uniform over
+    the range and then, twice, replaced with probability ``izero`` by a
+    shallow-biased ``(1 − Beta(1, b))``-scaled depth, b = 3 then 12 (drawn
+    as ``U^(1/b)``, which has that law). Returns (v0, xs)."""
+    from genie_tpu_torch.geometry import ecef2lla
+
+    dev = generator.device
+    scale_z, offset_z = float(np.asarray(scale_x)[2]), float(np.asarray(offset_x)[2])
+
+    def nodes(lead, n):
+        base = torch.as_tensor(_fibonacci_lattice(n), device=dev)
+        ang = torch.rand((*lead, 3), generator=generator, device=dev) * 2 * np.pi
+        c, s = torch.cos(ang), torch.sin(ang)
+        one, zero = torch.ones_like(c[..., 0]), torch.zeros_like(c[..., 0])
+
+        def mat(rows):
+            return torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
+
+        rx = mat(((one, zero, zero), (zero, c[..., 0], -s[..., 0]),
+                  (zero, s[..., 0], c[..., 0])))
+        ry = mat(((c[..., 1], zero, s[..., 1]), (zero, one, zero),
+                  (-s[..., 1], zero, c[..., 1])))
+        rz = mat(((c[..., 2], -s[..., 2], zero), (s[..., 2], c[..., 2], zero),
+                  (zero, zero, one)))
+        xyz = base @ (rx @ ry @ rz).transpose(-1, -2)
+        lla = ecef2lla(xyz, a=1.0, e=0.0)
+        z = torch.rand((*lead, n), generator=generator, device=dev) * scale_z + offset_z
+        for b in (3.0, 12.0):
+            u = torch.rand((*lead, n), generator=generator, device=dev)
+            pick = torch.rand((*lead, n), generator=generator, device=dev) < izero
+            z = torch.where(pick, u ** (1.0 / b) * scale_z + offset_z, z)
+        return torch.cat((lla[..., :2], z[..., None]), dim=-1)
+
+    return nodes((), n_clusters), nodes((n_steps,), n_batch)
+
+
+def kmeans_packing_spherical(generator, scale_x, offset_x, n_clusters: int,
+                             to_cart, weight=(1.0, 1.0, 2.0),
+                             n_batch: int = 3000, n_steps: int = 1000,
+                             lr: float = 0.01, izero: float = 0.65):
+    """Spherical node packing (the reference's ``kmeans_packing_spherical``):
+    Lloyd batches are randomly rotated Fibonacci lattices on the unit sphere
+    mapped to lat/lon, with depths biased toward the surface
+    (:func:`kmeans_packing_spherical_draws`). Returns (n_clusters, 3)."""
+    v, xs = kmeans_packing_spherical_draws(generator, scale_x, offset_x, n_clusters,
+                                           n_batch, n_steps, izero)
+    return kmeans_from_draws(v, xs, to_cart, _f32(weight, v.device), lr)
+
+
+def fibonacci_sphere_packing(n: int, radius: float = 6371e3):
+    """Fibonacci-lattice points on a sphere (the reference's spherical
+    packing initialization), float64 numpy."""
+    i = np.arange(n) + 0.5
+    phi = np.arccos(1 - 2 * i / n)
+    golden = np.pi * (1 + 5**0.5)
+    theta = golden * i
+    return np.stack((radius * np.sin(phi) * np.cos(theta),
+                     radius * np.sin(phi) * np.sin(theta),
+                     radius * np.cos(phi)), axis=1)
 
 
 def build_station_graph(sta_cart, k: int, sta_mask=None):

@@ -194,6 +194,12 @@ def save_checkpoint(path, model, optimizer=None, step: int = 0, cfg=None):
         blob["opt_state"] = {"count": np.int32(st["count"]),
                              "mu": {"params": to_flax(st["mu"])},
                              "nu": {"params": to_flax(st["nu"])}}
+    return _write_pickle_atomic(path, blob)
+
+
+def _write_pickle_atomic(path, blob) -> Path:
+    """Pickle ``blob`` to a temporary name beside ``path`` and rename it
+    into place, so a reader never sees a half-written file."""
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f".tmp_{os.getpid()}_{path.name}")
@@ -214,6 +220,24 @@ def load_checkpoint(path, model, optimizer=None) -> int:
     if optimizer is not None:
         set_adam_state(optimizer, model, _adam_state(blob, path))
     return int(np.asarray(blob.get("step", 0)))
+
+
+# -- travel-time artifact ------------------------------------------------------
+
+def save_pinn(path, model, scales, metrics: dict):
+    """The PINN artifact of ``scripts/nc_pinn.py`` (``Grids/pinn_nc.pkl``),
+    written atomically: ``{"params": {"params": weights in flax layout},
+    "scales": {center, x_scale, t_scale, v_mean} as float32 arrays,
+    "metrics"}``. The JAX ``workflow.make_trv`` and ``params.load_pinn``
+    read it."""
+    from genie_tpu_torch.params import to_flax
+
+    blob = {"params": {"params": to_flax(model)},
+            "scales": {k: np.asarray(v.detach().cpu().numpy() if hasattr(v, "detach")
+                                     else v, np.float32)
+                       for k, v in scales._asdict().items()},
+            "metrics": metrics}
+    return _write_pickle_atomic(path, blob)
 
 
 # -- calibration artifacts ------------------------------------------------------

@@ -1,8 +1,9 @@
 """Fresh weights for a model, as flax initialises them.
 
 Twins of ``model.init`` in ``init_train_state``
-(``genie_tpu/train/trainer.py:337-370``) and in ``train_graphdd``
-(``genie_tpu/relocation/graphdd.py:669``): flax ``Dense`` defaults, not
+(``genie_tpu/train/trainer.py:337-370``), in ``train_graphdd``
+(``genie_tpu/relocation/graphdd.py:669``) and in ``train_pinn``
+(``genie_tpu/models/travel_time_pinn.py:226``): flax ``Dense`` defaults, not
 ``nn.Linear``'s own initialisation, so a port run from scratch starts where
 a JAX run does (in distribution; the draws come from a ``torch.Generator``).
 """
@@ -33,6 +34,13 @@ def init_graphdd(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Initialise a ``relocation.graphdd.GNNLocation`` in place with flax's
     defaults, as :func:`init_detector`: ``lecun_normal`` kernels, zero
     biases, PReLU slopes 0.25."""
+    return _flax_defaults(model, generator)
+
+
+def init_pinn(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Initialise a ``models.travel_time_pinn.TravelTimesPN`` in place with
+    flax's defaults (``init_all`` in the JAX package): ``lecun_normal``
+    kernels, zero biases, the merge PReLU's slope 0.25."""
     return _flax_defaults(model, generator)
 
 

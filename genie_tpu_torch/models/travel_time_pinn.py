@@ -1,12 +1,17 @@
-"""Physics-informed neural travel-time surrogate, forward only.
+"""Physics-informed neural travel-time surrogate and its training.
 
-Port of ``genie_tpu/models/travel_time_pinn.py`` (``ScaleParams``,
-``_sin_block``, ``VModel``, ``TravelTimesPN``, ``TravelTimePN`` :30-167;
-``velocity_r2``, ``scales_from_domain``, ``load_reference_pinn`` :290-358).
+Port of ``genie_tpu/models/travel_time_pinn.py``: the forward
+(``ScaleParams``, ``_sin_block``, ``VModel``, ``TravelTimesPN``,
+``TravelTimePN`` :30-167; ``velocity_r2``, ``scales_from_domain``,
+``load_reference_pinn`` :290-358) and the training half (``make_pinn_loss``,
+``train_pinn``, ``importance_sample_volume`` :170-287).
 Sin-activated residual MLPs: a 10-d source embedding, a homogeneous baseline
 ``conversion_factor·‖Δx‖/v_mean`` and two perturbation branches
 (relative-offset and absolute-position) merged by an MLP; the travel time is
-``relu(time_norm · t_scale)``. The PINN losses and training are not ported.
+``relu(time_norm · t_scale)``. The loss has five terms: the data misfit, the
+eikonal residual ``‖∇_src T_n‖ = 1/v_n`` (a second derivative for the
+parameter gradients), the station boundary ``T(sta, sta) = 0``, causality
+and damping of the velocity net toward a prior.
 
 The module takes broadcast-compatible station and source inputs, so
 :meth:`TravelTimePN.from_cart` runs the source embedding once per source
@@ -182,6 +187,147 @@ def scales_from_domain(center, x_scale, t_scale, v_mean) -> ScaleParams:
 
     return ScaleParams(center=t(center), x_scale=t(x_scale), t_scale=t(t_scale),
                        v_mean=t(v_mean))
+
+
+def interp(x, xp, fp):
+    """``np.interp`` on tensors, with its end clamping: ``fp[0]`` left of
+    ``xp[0]``, ``fp[-1]`` right of ``xp[-1]`` (``jnp.interp``'s arithmetic)."""
+    i = torch.searchsorted(xp, x.contiguous(), right=True).clamp(1, len(xp) - 1)
+    df = fp[i] - fp[i - 1]
+    dx = xp[i] - xp[i - 1]
+    delta = x - xp[i - 1]
+    dx0 = dx.abs() <= float(np.spacing(np.finfo(np.float32).eps))
+    f = torch.where(dx0, fp[i - 1],
+                    fp[i - 1] + (delta / torch.where(dx0, torch.ones_like(dx), dx)) * df)
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)
+
+
+def eikonal_gradient(model: TravelTimesPN, sta_n, src_n, conversion_factor, v_mean,
+                     create_graph: bool = True):
+    """``(∇_src time_norm, time_norm)``: the derivative of each phase's
+    normalized time with respect to the source, through the source
+    embedding too, ``(B, n_ph, 3)``, and the times ``(B, n_ph)``. Rows are
+    independent, so the gradient of a phase's column sum is every row's own
+    gradient (what JAX's per-sample ``vmap(jacrev)`` gives). With
+    ``create_graph`` the result can be differentiated again."""
+    src = src_n.detach().requires_grad_(True)
+    raw = model.time_norm(sta_n, src, conversion_factor, v_mean)
+    grads = [torch.autograd.grad(raw[:, j].sum(), src, create_graph=create_graph,
+                                 retain_graph=True)[0]
+             for j in range(raw.shape[-1])]
+    return torch.stack(grads, dim=1), raw
+
+
+PINN_PARTS = ("data", "pde", "bound", "sign")
+
+
+def make_pinn_loss(model: TravelTimesPN, scales: ScaleParams, v_init_fn=None,
+                   w_pde: float = 0.5, w_bound: float = 0.5, w_data: float = 1.0,
+                   w_sign: float = 0.1, w_vdamp: float = 0.1):
+    """``loss_fn(sta_n, src_n, t_obs_n) -> (total, parts)`` over a batch of
+    normalized samples, ``parts`` the data, eikonal (``pde``), boundary and
+    sign terms. All in normalized units: the velocity net outputs ``v_n =
+    v·τ/L``, so ``‖∇_{x_n} T_n‖`` must equal ``1/v_n``; the residual is
+    taken on the pre-relu field. ``v_init_fn(src_n)`` (normalized
+    velocities, ``(B, n_ph)``) adds damping toward that prior."""
+    cf, vm = scales.conversion_factor, scales.v_mean
+
+    def loss_fn(sta_n, src_n, t_obs_n):
+        grads, raw = eikonal_gradient(model, sta_n, src_n, cf, vm)
+        data = (torch.relu(raw) - t_obs_n).abs().mean()
+        grad_norm = torch.sqrt((grads ** 2).sum(-1) + 1e-12)
+        v_n = model.velocity(src_n)
+        pde = (grad_norm - 1.0 / (v_n + 1e-3)).abs().mean()
+        bound = torch.relu(model.time_norm(sta_n, sta_n, cf, vm)).abs().mean()
+        sign = torch.relu(-raw).mean()
+        total = w_data * data + w_pde * pde + w_bound * bound + w_sign * sign
+        if v_init_fn is not None:
+            v0 = v_init_fn(src_n)
+            total = total + w_vdamp * ((v_n - v0).abs() / v0.abs()).mean()
+        return total, {"data": data, "pde": pde, "bound": bound, "sign": sign}
+
+    return loss_fn
+
+
+def train_pinn(generator, model: TravelTimesPN, scales: ScaleParams, sample_fn,
+               n_steps: int = 2000, batch: int = 4096, lr=1e-3, v_init_fn=None,
+               log_every: int = 0, keep_weights: bool = False, device=None):
+    """Adam after clipping the gradients to global norm 1, over batches of
+    ``sample_fn(generator, batch) -> (sta_n, src_n, t_obs_n)``. ``lr`` is a
+    number or a schedule ``count -> lr`` (``train.optim.cosine_decay_schedule``),
+    evaluated at the count of steps taken before this one, as optax does.
+    ``generator`` (a ``torch.Generator`` on the device) first gives ``model``
+    flax-default weights (``models.init.init_pinn``) unless
+    ``keep_weights``. Runs on ``device`` (default ``cuda``). Returns
+    ``(model, history)``: ``history`` maps ``total`` and each of
+    :data:`PINN_PARTS` to its ``(n_steps,)`` tensor on the device."""
+    from genie_tpu_torch.models.init import init_pinn
+    from genie_tpu_torch.train.optim import clip_by_global_norm_
+
+    dev = resolve_device(device)
+    model = model.to(dev)
+    if not keep_weights:
+        if generator is None:
+            raise ValueError("train_pinn needs a generator for the initial weights "
+                             "(or keep_weights=True)")
+        init_pinn(model, generator)
+    loss_fn = make_pinn_loss(model, scales.to(dev), v_init_fn=v_init_fn)
+    params = list(model.parameters())
+    opt = torch.optim.Adam(params, lr=lr(0) if callable(lr) else lr)
+    hist = torch.zeros((n_steps, 1 + len(PINN_PARTS)), device=dev)
+    for i in range(n_steps):
+        if callable(lr):
+            opt.param_groups[0]["lr"] = lr(i)
+        sta_n, src_n, t_obs_n = sample_fn(generator, batch)
+        opt.zero_grad(set_to_none=True)
+        total, parts = loss_fn(sta_n, src_n, t_obs_n)
+        total.backward(inputs=params)
+        clip_by_global_norm_(params, 1.0)
+        opt.step()
+        hist[i] = torch.stack([total.detach()] + [parts[k].detach() for k in PINN_PARTS])
+        if log_every and i % log_every == 0:
+            print(f"pinn step {i}: loss {float(total):.5f}")
+    return model, dict(zip(("total",) + PINN_PARTS, hist.unbind(1)))
+
+
+def importance_sample_volume(rng, Tp, Ts, origin, h, sta_cart_j, n,
+                             mix=(0.3, 0.2, 0.2, 0.3), t_floor: float = 2.0,
+                             near_sigma: float = 25e3):
+    """Importance-sampled (src_cart, t_ps) training tuples from one station's
+    FMM volume, the reference's sampling mixture for the PINN: uniform, 1/t,
+    1/t² (both emphasizing the steep near-field), and a near-station
+    Gaussian ball. A numpy copy of the JAX package's sampler: the same
+    ``np.random.Generator`` gives the same draws.
+
+    Returns ``(src_cart (n,3) f32, t (n,2) f32)``.
+    """
+    shape = np.asarray(Tp.shape)
+    N = int(Tp.size)
+    flat_tp = np.asarray(Tp, np.float32).reshape(-1)
+    n_u = int(mix[0] * n)
+    n_1 = int(mix[1] * n)
+    n_2 = int(mix[2] * n)
+    n_b = n - n_u - n_1 - n_2
+
+    idx = [rng.integers(0, N, n_u)]
+    w = 1.0 / np.maximum(flat_tp, t_floor)
+    for power, count in ((1, n_1), (2, n_2)):
+        cdf = np.cumsum(w if power == 1 else w * w)
+        cdf /= cdf[-1]
+        idx.append(np.searchsorted(cdf, rng.random(count)))
+    # near-station Gaussian in index space (clipped to the volume)
+    ctr = (np.asarray(sta_cart_j) - np.asarray(origin)) / h
+    ijk = np.clip(np.round(ctr + rng.normal(0, near_sigma / h, (n_b, 3))),
+                  0, shape - 1).astype(np.int64)
+    idx.append(np.ravel_multi_index(
+        (ijk[:, 0], ijk[:, 1], ijk[:, 2]), tuple(shape)))
+    idx = np.concatenate(idx)
+    iii = np.stack(np.unravel_index(idx, tuple(shape)), axis=1)
+    src = (np.asarray(origin) + iii * h).astype(np.float32)
+    t = np.stack((flat_tp[idx], np.asarray(Ts, np.float32).reshape(-1)[idx]),
+                 axis=1)
+    return src, t
 
 
 @torch.no_grad()

@@ -211,8 +211,9 @@ fused_round.launches = 0
 def _dprelu(h, a):
     """d PReLU(h)/dh as autograd takes it through :func:`prelu`: 1 above
     0, ``a`` below and ``0.5·(1 + a)`` at 0, as ``a + (1 - a)·H(h)`` with
-    the Heaviside step ``H(0) = 0.5``."""
-    return torch.addcmul(a, 1.0 - a, torch.heaviside(h, _HALF.to(h.dtype)))
+    the Heaviside step ``H(0) = 0.5``, whose own derivative is 0 (so a
+    second derivative, as the PINN's eikonal loss takes, goes through)."""
+    return torch.addcmul(a, 1.0 - a, torch.heaviside(h.detach(), _HALF.to(h.dtype)))
 
 
 def fused_round_backward_plain(grad_out, x, z, agg_src, mask, nbr, w, w1, b1,

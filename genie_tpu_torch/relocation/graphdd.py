@@ -37,6 +37,7 @@ from torch import nn
 from genie_tpu_torch.device import resolve_device
 from genie_tpu_torch.models.layers import PReLU, _prelus
 from genie_tpu_torch.ops.knn import knn
+from genie_tpu_torch.train.optim import clip_by_global_norm_
 
 
 class RelocGraph(NamedTuple):
@@ -693,21 +694,6 @@ def make_dd_loss(model: GNNLocation, trv_from_cart, sta_cart, w_dd: float = 0.8,
         return total, (parts, d_pos.detach(), d_t.detach())
 
     return loss_fn
-
-
-@torch.no_grad()
-def clip_by_global_norm_(params, max_norm: float = 1.0):
-    """optax's ``clip_by_global_norm``: every gradient becomes ``(g / ‖g‖)
-    · max_norm`` when the global norm ‖g‖ is at least ``max_norm``
-    (``clip_grad_norm_`` would add 1e-6 to the norm). No host sync.
-    Returns ‖g‖."""
-    grads = [p.grad for p in params if p.grad is not None]
-    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-    clip = norm >= max_norm
-    torch._foreach_div_(grads, torch.where(clip, norm, torch.ones_like(norm)))
-    if max_norm != 1.0:
-        torch._foreach_mul_(grads, torch.where(clip, max_norm, 1.0).to(norm))
-    return norm
 
 
 def train_graphdd(generator, model: GNNLocation, trv_from_cart, sta_cart, graphs,

@@ -54,7 +54,9 @@ def test_port_imports_no_jax_flax_optax_or_genie_tpu():
                 "genie_tpu_torch.calibration.magnitude_scale",
                 "genie_tpu_torch.utils", "genie_tpu_torch.models.init",
                 "genie_tpu_torch.synth.generator", "genie_tpu_torch.train.trainer",
-                "genie_tpu_torch.relocation", "genie_tpu_torch.relocation.graphdd"):
+                "genie_tpu_torch.relocation", "genie_tpu_torch.relocation.graphdd",
+                "genie_tpu_torch.native.fmm", "genie_tpu_torch.setup",
+                "genie_tpu_torch.setup.project", "genie_tpu_torch.train.optim"):
         assert mod in res["modules"]
 
 
@@ -158,7 +160,7 @@ def test_run6_config_in_code_matches_yaml():
 
     want = yaml.safe_load((ROOT / "projects/NC_EHZ/run6/config.yaml").read_text())
     got = chip_smoke.run6_config().to_dict()
-    for sec in ("region", "velocity", "graph", "model", "process"):
+    for sec in ("region", "velocity", "graph", "model", "process", "travel_time"):
         for k, v in want[sec].items():
             g = got[sec][k]
             assert (list(g) if isinstance(g, tuple) else g) == v, (sec, k)
