@@ -15,7 +15,9 @@ Phases (any failure exits non-zero):
      (input 60, H = 15), association (M = 5); max |kernel − plain| ≤ 1e-4 in
      float32 with TF32 off; and time kernel, plain version and the dense
      ``torch.matmul`` formulation, with the kernel's share of its bound and
-     its achieved GB/s and TFLOP/s;
+     its achieved GB/s and TFLOP/s; each form again in its edge form (E = 4,
+     the updated model definition's per-station and per-source tables),
+     held and timed the same way;
   3. build an NC-scale domain: the run6 grids (5 × 500 sources), 374
      stations drawn from ``--seed`` inside the grid box, homogeneous travel
      times from the mean run6 velocities, the 10,000-node detection query
@@ -116,6 +118,19 @@ Phases (any failure exits non-zero):
      to the project's ``Grids/``, read back by ``make_trv`` (times within
      1e-6 s of the trained model's) and ``domain_from_project`` (5 × 500 ×
      374 × 2 finite grid tables).
+ 12. ``[options]`` (run after phase 8; ``options_phase``): the detector and
+     pipeline options that run6's config leaves off, on the phase-3 domain:
+     the edge form's ``FusedRound`` backward against autograd (as phase
+     8); ``workflow.train`` from flax-default weights with
+     ``use_updated_model_definition``, ``use_absolute_pos`` and
+     ``normalize_readin`` on run6's training blocks (one window card vs
+     CPU at phase 8's tolerances, 3 steps with 32 launches each, one
+     profiled step; the weights and ``read_in.sum_gain`` must move); those
+     weights served with subgraph pair masks at the config defaults (one
+     request, one sweep window card vs CPU; no quality gate, the weights
+     are four steps old); the bf16-weight sweep with run6's weights against
+     the f32 sweep (≤ 0.05), card vs CPU (≤ 1e-3), and a request with it
+     that must locate the six planted events within 5 km and 0.5 s.
 
 It prints per-stage times, event counts, launches, peak memory, the card's
 name and power limit, a JSON line describing every kernel, and as its last
@@ -213,13 +228,14 @@ def build_kernels():
 
 
 # -- phase 2 ---------------------------------------------------------------
-def round_bound(rows, n_sta, cx, cz, m, h, k, z_is_x):
+def round_bound(rows, n_sta, cx, cz, m, h, k, z_is_x, e=0, n_src=0):
     """Least bytes and operations of one launch (each input read once, the
-    output written once; every neighbour slot of the table is valid)."""
-    d = cx + cz + m
+    output written once; every neighbour slot of the table is valid); the
+    edge form (e = 4) reads its (n_sta, e) and (n_src, e) tables once."""
+    d = cx + cz + e + m
     elems_in = rows * n_sta * (cx + (0 if z_is_x else cz) + cz + m)
     elems_out = rows * n_sta * 2 * h
-    small = n_sta * k * 2 + 2 * d * h + 2 * h + 2
+    small = n_sta * k * 2 + 2 * d * h + 2 * h + 2 + (n_sta + n_src) * e
     nbytes = 4 * (elems_in + elems_out + small)
     flops = rows * n_sta * (2 * k * cz + 2 * 2 * h * d)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -228,8 +244,11 @@ def round_bound(rows, n_sta, cx, cz, m, h, k, z_is_x):
 
 
 def check_kernel(sta_nbr, sta_w, seed: int):
-    """Kernel vs plain version for the three round forms at run6 widths.
-    Returns the per-form records (launches here are comparison launches)."""
+    """Kernel vs plain version for the three round forms at run6 widths,
+    each also in its edge form (E = 4, the updated model definition: 16
+    windows × 500 sources, random tables in [-1, 1], the range of
+    ``mean_rel_pos_embed``). Returns the per-form records of the run6 forms
+    and of the edge forms (launches here are comparison launches)."""
     import torch
     import torch.nn.functional as F
 
@@ -239,7 +258,8 @@ def check_kernel(sta_nbr, sta_w, seed: int):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
-    rows, n_sta = 16 * 500, int(sta_nbr.shape[0])
+    n_win, n_src, n_sta = 16, 500, int(sta_nbr.shape[0])
+    rows = n_win * n_src
     k = int(sta_nbr.shape[1])
     a_dense = aggregation_matrix(sta_nbr, n_sta)
 
@@ -248,47 +268,65 @@ def check_kernel(sta_nbr, sta_w, seed: int):
 
     forms = [("round1", 30, 30, 4, 30, True), ("round2", 60, 30, 4, 15, False),
              ("assoc", 30, 30, 5, 30, False)]
-    records = []
+    records, edge_records = [], []
     for name, cx, cz, m, h, z_is_x in forms:
-        d = cx + cz + m
         x = randn(rows, n_sta, cx)
         z = x if z_is_x else randn(rows, n_sta, cz)
         agg_src = randn(rows, n_sta, cz)
         mask = (torch.rand((rows, n_sta, m), generator=gen, device=dev) > 0.5).float()
-        w1, w2 = randn(h, d, scale=0.2), randn(h, d, scale=0.2)
-        b1, b2 = randn(h), randn(h)
         slopes = torch.tensor([0.25, 0.1], device=dev)
-        args = (x, z, agg_src, mask, sta_nbr, sta_w, w1, b1, w2, b2, slopes)
-        got = fused_round(*args)
-        torch.cuda.synchronize()
-        want = fused_round_plain(*args)
-        err = float((got - want).abs().max())
-        if not np.isfinite(err) or err > TOL:
-            fail(f"fused_round {name}: max |kernel - plain| = {err} > {TOL}")
-        del got, want
+        for e in (0, 4):
+            d = cx + cz + e + m
+            w1, w2 = randn(h, d, scale=0.2), randn(h, d, scale=0.2)
+            b1, b2 = randn(h), randn(h)
+            if e:   # the edge form: rows as (windows, sources), per-source table
+                shp = (n_win, n_src, n_sta)
+                ins = tuple(t.view(*shp, t.shape[-1]) for t in (x, z, agg_src, mask))
+                tabs = (torch.rand((n_sta, e), generator=gen, device=dev) * 2 - 1,
+                        torch.rand((n_src, e), generator=gen, device=dev) * 2 - 1)
+            else:
+                ins, tabs = (x, z, agg_src, mask), ()
+            args = (*ins, sta_nbr, sta_w, w1, b1, w2, b2, slopes, *tabs)
+            label = name if not e else f"{name}+e{e}"
+            got = fused_round(*args)
+            torch.cuda.synchronize()
+            want = fused_round_plain(*args)
+            err = float((got - want).abs().max())
+            if not np.isfinite(err) or err > TOL:
+                fail(f"fused_round {label}: max |kernel - plain| = {err} > {TOL}")
+            del got, want
 
-        def library():
-            zp = torch.clamp_min(z, 0) + slopes[0] * torch.clamp_max(z, 0)
-            agg = torch.matmul(a_dense, zp)
-            h1 = F.linear(torch.cat((x, agg, mask), -1), w1, b1)
-            h2 = F.linear(torch.cat((x, agg_src, mask), -1), w2, b2)
-            hh = torch.cat((h1, h2), -1)
-            return torch.clamp_min(hh, 0) + slopes[1] * torch.clamp_max(hh, 0)
+            def library():
+                xi, zi, si, mi = ins
+                zp = torch.clamp_min(zi, 0) + slopes[0] * torch.clamp_max(zi, 0)
+                agg = torch.matmul(a_dense, zp)
+                ext1 = ext2 = ()
+                if e:
+                    ext1 = (tabs[0].expand(*xi.shape[:-1], e),)
+                    ext2 = (tabs[1][:, None, :].expand(*xi.shape[:-1], e),)
+                h1 = F.linear(torch.cat((xi, agg, *ext1, mi), -1), w1, b1)
+                h2 = F.linear(torch.cat((xi, si, *ext2, mi), -1), w2, b2)
+                hh = torch.cat((h1, h2), -1)
+                return torch.clamp_min(hh, 0) + slopes[1] * torch.clamp_max(hh, 0)
 
-        ms = cuda_time_ms(lambda: fused_round(*args))
-        plain_ms = cuda_time_ms(lambda: fused_round_plain(*args), reps=3, warmup=1)
-        library_ms = cuda_time_ms(library, reps=3, warmup=1)
-        nbytes, flops, bound_ms, bound_by = round_bound(rows, n_sta, cx, cz, m, h,
-                                                        k, z_is_x)
-        rec = dict(form=name, rows=rows, n_sta=n_sta, cx=cx, cz=cz, m=m, h=h,
-                   max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
-                   share_of_bound=bound_ms / ms, gb_per_s=nbytes / ms / 1e6,
-                   tflop_per_s=flops / ms / 1e9)
-        print(f"[kernel] {json.dumps(rec)}", flush=True)
-        records.append(rec)
-        del x, z, agg_src, mask, args
+            ms = cuda_time_ms(lambda: fused_round(*args))
+            plain_ms = cuda_time_ms(lambda: fused_round_plain(*args), reps=3, warmup=1)
+            library_ms = cuda_time_ms(library, reps=3, warmup=1)
+            nbytes, flops, bound_ms, bound_by = round_bound(rows, n_sta, cx, cz, m, h,
+                                                            k, z_is_x, e, n_src)
+            rec = dict(form=label, rows=rows, n_sta=n_sta, cx=cx, cz=cz, m=m, h=h, e=e,
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
+                       share_of_bound=bound_ms / ms, gb_per_s=nbytes / ms / 1e6,
+                       tflop_per_s=flops / ms / 1e9)
+            print(f"[kernel] {json.dumps(rec)}", flush=True)
+            (edge_records if e else records).append(rec)
+            del args, ins
+        del x, z, agg_src, mask
         torch.cuda.empty_cache()
+    for r0, r4 in zip(records, edge_records):
+        print(f"[kernel] {r4['form']}: {r4['ms']:.4f} ms against {r0['ms']:.4f} ms "
+              f"(+{100 * (r4['ms'] / r0['ms'] - 1):.1f} %)", flush=True)
 
     # the JAX-signature entry (dense A_sta → padded neighbour list)
     xs = randn(64, 16, 8)
@@ -305,7 +343,7 @@ def check_kernel(sta_nbr, sta_w, seed: int):
     if err > TOL:
         fail(f"fused_dual_round (dense A): max |kernel - plain| = {err}")
     print(f"[kernel] dense-A entry max |kernel - plain| = {err:.3e}", flush=True)
-    return records
+    return records, edge_records
 
 
 # -- phase 3 ---------------------------------------------------------------
@@ -409,10 +447,31 @@ def make_picks(ctx, trv, seed: int, span: float = 600.0, n_events: int = 6,
     return out + (np.concatenate(amp)[order], ev_mag)
 
 
+def planted_matches(tag, events, picks):
+    """Every planted event of ``picks`` must be located within 5 km and
+    0.5 s by some catalog event; returns those events per planted event."""
+    ev_pos, ev_t = picks[3], picks[4]
+    matches = []
+    for j in range(len(ev_t)):
+        near = [ev for ev in events if abs(ev.time - ev_t[j]) < 0.5
+                and np.linalg.norm(ev.pos_cart - ev_pos[j]) < 5e3]
+        if not near:
+            fail(f"[{tag}] planted event {j} (t={ev_t[j]:.2f} s) not located within "
+                 f"5 km and 0.5 s")
+        best = min(near, key=lambda ev: np.linalg.norm(ev.pos_cart - ev_pos[j]))
+        print(f"[{tag}] planted t={ev_t[j]:.2f} s: event dt {best.time - ev_t[j]:+.3f} s, "
+              f"{np.linalg.norm(best.pos_cart - ev_pos[j]) / 1e3:.2f} km, "
+              f"{len(best.picks)} picks")
+        matches.append(near)
+    return matches
+
+
 # -- phase 4 ---------------------------------------------------------------
-def check_sweep_window(pipe, model_cpu, cfg, ctx, trv, picks, x_query):
+def check_sweep_window(pipe, model_cpu, cfg, ctx, trv, picks, x_query, tol=TOL,
+                       tag="check", **pipe_kw):
     """One sweep window through the kernel path on the card and through
-    the plain path on the CPU: same query scores within TOL."""
+    the plain path on the CPU (a pipeline of the same ``cfg`` and
+    ``pipe_kw``): same query scores within ``tol``."""
     import torch
 
     from genie_tpu_torch.infer.pipeline import InferencePipeline
@@ -420,16 +479,17 @@ def check_sweep_window(pipe, model_cpu, cfg, ctx, trv, picks, x_query):
     pick_t, pick_sta, pick_ph = picks[:3]
     ctx_cpu = type(ctx)(*[v.cpu() if isinstance(v, torch.Tensor) else v for v in ctx])
     pipe_cpu = InferencePipeline(model_cpu, cfg, ctx_cpu, trv.from_cart,
-                                 x_query_grid=x_query, device="cpu")
+                                 x_query_grid=x_query, device="cpu", **pipe_kw)
     t0 = float(picks[4][0]) - 3.0
     tp, ip, ph, pm, _ = pipe._window_picks(pick_t, pick_sta, pick_ph, t0)
-    got = pipe._sweep_batch(*pipe._to_device([(tp, ip, ph, pm)]), 0).cpu()
-    want = pipe_cpu._sweep_batch(*pipe_cpu._to_device([(tp, ip, ph, pm)]), 0)
+    got = pipe._sweep_batch(*pipe._to_device([(tp, ip, ph, pm)]), 0).cpu().float()
+    want = pipe_cpu._sweep_batch(*pipe_cpu._to_device([(tp, ip, ph, pm)]), 0).float()
     err = float((got - want).abs().max())
-    print(f"[check] sweep window, kernel path (cuda) vs plain path (cpu): "
+    print(f"[{tag}] sweep window, kernel path (cuda) vs plain path (cpu): "
           f"max |diff| = {err:.3e}, max score {float(want.max()):.4f}", flush=True)
-    if not np.isfinite(err) or err > TOL:
-        fail(f"sweep window differs from the CPU plain path by {err}")
+    if not np.isfinite(err) or err > tol:
+        fail(f"[{tag}] sweep window differs from the CPU plain path by {err}")
+    return err
 
 
 def profile_request(pipe, picks, pick_amp=None, tag="profile", ranges=()):
@@ -620,18 +680,9 @@ def production_request(pipe, cfg, ctx, trv, mag, seed: int):
         if not (np.isfinite(ev.pos_cart).all() and np.isfinite(ev.time)
                 and ev.mag is not None and np.isfinite(ev.mag)):
             fail(f"malformed production event {ev}")
-    ev_pos, ev_t = picks[3], picks[4]
-    for j in range(len(ev_t)):
-        near = [ev for ev in events if abs(ev.time - ev_t[j]) < 0.5
-                and np.linalg.norm(ev.pos_cart - ev_pos[j]) < 5e3]
-        best = min(events, key=lambda ev: abs(ev.time - ev_t[j])) if events else None
-        if best is not None:
-            print(f"[production] planted t={ev_t[j]:.2f} s M {ev_mag[j]:.2f}: nearest "
-                  f"event dt {best.time - ev_t[j]:+.3f} s, "
-                  f"{np.linalg.norm(best.pos_cart - ev_pos[j]) / 1e3:.2f} km, M "
-                  f"{best.mag:.2f}, {len(best.picks)} picks")
-        if not near:
-            fail(f"planted event {j} (t={ev_t[j]:.2f} s) not located within 5 km and 0.5 s")
+    for j, near in enumerate(planted_matches("production", events, picks)):
+        print(f"[production] planted event {j}: M {ev_mag[j]:.2f}, located "
+              f"M {[round(ev.mag, 2) for ev in near]}")
         if min(abs(ev.mag - ev_mag[j]) for ev in near) > 0.25:
             fail(f"planted event {j}: magnitude off by more than 0.25")
     print("[stages] production, second call, host seconds: "
@@ -722,39 +773,45 @@ def run6_train_config():
     return cfg
 
 
-def check_backward(sta_nbr, sta_w, seed: int, dev="cuda"):
+def check_backward(sta_nbr, sta_w, seed: int, dev="cuda", e: int = 0):
     """(i) ``FusedRound``'s backward on the card against autograd through
     ``fused_round_plain`` on the card, for the three round forms of
-    ``check_kernel`` at 8000 × 374: max |Δgrad| of each input ≤ TOL × its
-    max |grad|. Returns per-form records with both backward times."""
+    ``check_kernel`` at 8000 × 374 (as 16 windows × 500 sources), or their
+    edge forms with ``e = 4`` (W1's and W2's edge columns take gradients,
+    the tables none): max |Δgrad| of each input ≤ TOL × its max |grad|.
+    Returns per-form records with both backward times."""
     import torch
 
     from genie_tpu_torch.ops.fused_round import FusedRound, fused_round_plain
 
     dev = torch.device(dev)
-    gen = torch.Generator(device=dev).manual_seed(seed + 5)
-    rows, n_sta = 16 * 500, int(sta_nbr.shape[0])
+    gen = torch.Generator(device=dev).manual_seed(seed + 5 + e)
+    n_sta = int(sta_nbr.shape[0])
+    lead = (16, 500)
 
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
 
     names = ("x", "z", "agg_src", "w1", "b1", "w2", "b2", "slopes")
+    tabs = ((torch.rand((n_sta, e), generator=gen, device=dev) * 2 - 1,
+             torch.rand((lead[1], e), generator=gen, device=dev) * 2 - 1) if e else ())
     records = []
     for form, cx, cz, m, h, z_is_x in (("round1", 30, 30, 4, 30, True),
                                        ("round2", 60, 30, 4, 15, False),
                                        ("assoc", 30, 30, 5, 30, False)):
-        d = cx + cz + m
-        x = randn(rows, n_sta, cx).requires_grad_()
-        z = x if z_is_x else randn(rows, n_sta, cz).requires_grad_()
-        agg_src = randn(rows, n_sta, cz).requires_grad_()
-        mask = (torch.rand((rows, n_sta, m), generator=gen, device=dev) > 0.5).float()
+        d = cx + cz + e + m
+        x = randn(*lead, n_sta, cx).requires_grad_()
+        z = x if z_is_x else randn(*lead, n_sta, cz).requires_grad_()
+        agg_src = randn(*lead, n_sta, cz).requires_grad_()
+        mask = (torch.rand((*lead, n_sta, m), generator=gen, device=dev) > 0.5).float()
         params = [randn(h, d, scale=0.2), randn(h), randn(h, d, scale=0.2), randn(h)]
         params = [p.requires_grad_() for p in params]
         slopes = torch.tensor([0.25, 0.1], device=dev, requires_grad=True)
-        args = (x, z, agg_src, mask, sta_nbr, sta_w, *params, slopes)
+        args = (x, z, agg_src, mask, sta_nbr, sta_w, *params, slopes, *tabs)
         leaves = [x] + ([] if z_is_x else [z]) + [agg_src, *params, slopes]
         leaf_names = [n for n in names if not (z_is_x and n == "z")]
-        g_out = randn(rows, n_sta, 2 * h)
+        g_out = randn(*lead, n_sta, 2 * h)
+        form = form if not e else f"{form}+e{e}"
 
         def grads(fn):
             return torch.autograd.grad(fn(*args), leaves, g_out)
@@ -773,7 +830,7 @@ def check_backward(sta_nbr, sta_w, seed: int, dev="cuda"):
                                                           retain_graph=True), reps=3)
         bwd_plain_ms = cuda_time_ms(lambda: torch.autograd.grad(
             out_p, leaves, g_out, retain_graph=True), reps=3, warmup=1)
-        rec = dict(form=form, rows=rows, n_sta=n_sta, max_rel_grad_err=worst,
+        rec = dict(form=form, rows=lead[0] * lead[1], n_sta=n_sta, max_rel_grad_err=worst,
                    rel_grad_err=rel, backward_ms=bwd_ms, plain_backward_ms=bwd_plain_ms)
         print(f"[train-check] backward {json.dumps(rec)}", flush=True)
         records.append(rec)
@@ -782,11 +839,13 @@ def check_backward(sta_nbr, sta_w, seed: int, dev="cuda"):
     return records
 
 
-def check_train_window(cfg, ctx, seed: int, dev="cuda"):
+def check_train_window(cfg, ctx, seed: int, dev="cuda", make_model=None,
+                       trv_pair=None, tag="train-check"):
     """(ii) one window's total loss and parameter gradients through the
     kernel path on the card against the plain path on the CPU, run6
-    weights, PINN travel times: loss within TOL relative, each gradient
-    tensor within 1e-3 × its max |g|."""
+    weights (or ``make_model()``, called once per side), PINN travel times
+    (or ``trv_pair``, card and CPU): loss within TOL relative, each
+    gradient tensor within 1e-3 × its max |g|."""
     import torch
 
     from genie_tpu_torch.params import load_pinn
@@ -794,34 +853,35 @@ def check_train_window(cfg, ctx, seed: int, dev="cuda"):
 
     cfg1 = copy.deepcopy(cfg)
     cfg1.train.n_batch = 1
-    pinn, pinn_cpu = load_pinn(PINN, device=dev), load_pinn(PINN, device="cpu")
+    make_model = make_model or (lambda: load_model(cfg))
+    pinn, pinn_cpu = trv_pair or (load_pinn(PINN, device=dev), load_pinn(PINN, device="cpu"))
     gen = torch.Generator(device=dev).manual_seed(seed + 6)
     wb = generate_batch(gen, cfg1, ctx, pinn.from_cart)
     ctx_cpu = type(ctx)(*[v.cpu() if isinstance(v, torch.Tensor) else v for v in ctx])
     wb_cpu = type(wb)(*[v.cpu() for v in wb])
     out = {}
-    for tag, model, c, w, trv in (("cuda", load_model(cfg).to(dev), ctx, wb, pinn),
-                                  ("cpu", load_model(cfg), ctx_cpu, wb_cpu, pinn_cpu)):
+    for side, model, c, w, trv in (("cuda", make_model().to(dev), ctx, wb, pinn),
+                                   ("cpu", make_model(), ctx_cpu, wb_cpu, pinn_cpu)):
         t0 = time.time()
         total, (parts, trgts, preds) = loss_fn(model, c, cfg1, w, trv.from_cart,
                                                backward=True)
         grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()}
-        out[tag] = (float(total), parts.cpu().numpy(), grads, time.time() - t0)
+        out[side] = (float(total), parts.cpu().numpy(), grads, time.time() - t0)
     (l_k, parts_k, g_k, s_k), (l_p, parts_p, g_p, s_p) = out["cuda"], out["cpu"]
     loss_rel = abs(l_k - l_p) / max(abs(l_p), 1e-30)
     grad_rel = {n: float((g_k[n] - g_p[n]).abs().max() / g_p[n].abs().max().clamp_min(1e-30))
                 for n in g_p}
     worst = max(grad_rel, key=grad_rel.get)
-    print("[train-check] window " + json.dumps({
+    print(f"[{tag}] window " + json.dumps({
         "loss_cuda": l_k, "loss_cpu": l_p, "loss_rel": loss_rel,
         "parts_cuda": parts_k.tolist(), "parts_cpu": parts_p.tolist(),
         "picks": int(wb.pick_mask.sum()), "max_rel_grad_err": grad_rel[worst],
         "worst_param": worst, "n_params": len(grad_rel),
         "cuda_s": s_k, "cpu_s": s_p}), flush=True)
     if not (np.isfinite(l_k) and np.isfinite(l_p)) or loss_rel > TOL:
-        fail(f"training loss on the card {l_k} vs the CPU plain path {l_p}")
+        fail(f"[{tag}] training loss on the card {l_k} vs the CPU plain path {l_p}")
     if not np.isfinite(grad_rel[worst]) or grad_rel[worst] > 1e-3:
-        fail(f"gradient of {worst} differs from the CPU plain path by "
+        fail(f"[{tag}] gradient of {worst} differs from the CPU plain path by "
              f"{grad_rel[worst]} of its max |g|")
 
 
@@ -922,6 +982,205 @@ def train_phase(cfg, ctx, pinn, seed: int, card: str, dev="cuda"):
     if launches_p != per_step:
         fail(f"[train] the profiled step launched the kernel {launches_p} times")
     return launches
+
+
+# -- phase 12 (after phase 8) ------------------------------------------------
+MODEL_OPTIONS = ("use_updated_model_definition", "use_absolute_pos", "normalize_readin")
+
+
+def options_model(cfg, seed: int, dev="cpu"):
+    """The detector with the three model options that run6 leaves off, on
+    ``dev`` at flax-default weights from a generator there seeded with
+    ``seed``, as ``workflow.train`` initialises it (the same weights at
+    every call)."""
+    import torch
+
+    from genie_tpu_torch.models.detector import Detector
+    from genie_tpu_torch.models.init import init_detector
+
+    model = Detector(scale_rel=cfg.model.scale_rel, kernel_sig_t=cfg.model.kernel_sig_t,
+                     use_phase_types=cfg.model.use_phase_types,
+                     **{o: True for o in MODEL_OPTIONS}).to(dev)
+    return init_detector(model, torch.Generator(device=dev).manual_seed(seed))
+
+
+def timed_request(pipe, picks):
+    """One ``process`` with the kernel launch count set to 0 just before:
+    (events, launches, wall seconds)."""
+    import torch
+
+    from genie_tpu_torch.ops.fused_round import fused_round
+
+    torch.cuda.synchronize()
+    fused_round.launches = 0
+    t0 = time.time()
+    events = pipe.process(picks[0], picks[1], picks[2], 0.0, 600.0)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    for ev in events:
+        if not (np.isfinite(ev.pos_cart).all() and np.isfinite(ev.time)):
+            fail(f"malformed catalog event {ev}")
+    return events, fused_round.launches, wall
+
+
+def options_phase(cfg_inf, ctx, trv, x_query, picks, sta_nbr, sta_w, seed: int,
+                  card: str, dev="cuda"):
+    """Phase 12, ``[options]``: the detector and pipeline options that
+    run6's config leaves off, on the phase-3 domain (homogeneous travel
+    times). (a) The edge form's backward (``check_backward`` with E = 4).
+    (b) Training with ``use_updated_model_definition``, ``use_absolute_pos``
+    and ``normalize_readin`` on run6's ``synth:``/``train:`` blocks: one
+    window's loss and gradients card vs CPU at flax-default weights, then
+    ``workflow.train`` from flax-default weights for 3 steps (launch count
+    set to 0 before; 32 forward launches per step) and one profiled step;
+    every loss finite, the weights and ``read_in.sum_gain`` must move.
+    (c) Serving those weights with ``cfg.graph.use_subgraph`` at the config
+    defaults (1.5°, k 30): the kept share of the pairs, one ``process`` of
+    the phase-4 picks with launches counted and one sweep window card vs CPU
+    within TOL. The weights are four steps old, so no detection quality is
+    asked of them. (d) The bf16-weight sweep with run6's weights:
+    ``detection_sweep`` with ``sweep_half`` against the f32 sweep (max |Δ| ≤
+    0.05), one window card vs CPU within 1e-3 (f16 spacing near 1 is
+    4.9e-4), and a ``process`` with ``sweep_half`` that locates the six
+    planted events within 5 km and 0.5 s. Returns (the edge-form backward
+    records, the launches of each driven path)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from genie_tpu_torch.infer.pipeline import InferencePipeline
+    from genie_tpu_torch.ops.fused_round import fused_round
+    from genie_tpu_torch.train.trainer import (build_domain_context, make_train_step,
+                                               step_seed)
+    from genie_tpu_torch.workflow import train
+
+    t_phase = time.time()
+    launches = {}
+    bwd = check_backward(sta_nbr, sta_w, seed, dev, e=4)
+
+    # (b) training with the three model options
+    cfg = run6_train_config()
+    for o in MODEL_OPTIONS:
+        setattr(cfg.model, o, True)
+    ctx_t = build_domain_context(cfg, ctx.sta_lla, ctx.sta_cart, ctx.grids_lla,
+                                 ctx.grids_cart, ctx.trv_grids, dev)
+    check_train_window(cfg, ctx_t, seed, dev, make_model=lambda: options_model(cfg, seed),
+                       trv_pair=(trv, trv), tag="options-check")
+    n_steps = 3
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fused_round.launches = 0
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as out:
+        model, state, history = train(cfg, ctx_t, trv, out, n_steps=n_steps,
+                                      log_every=1, seed=seed)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches["train"] = fused_round.launches
+    peak = torch.cuda.max_memory_allocated()
+    per_step = 4 * cfg.train.n_batch
+    if launches["train"] != per_step * n_steps:
+        fail(f"[options] {launches['train']} fused_round launches in {n_steps} steps, "
+             f"expected {per_step * n_steps}")
+    for i, (m, st) in enumerate(history):
+        print(f"[options] train step {i}: " + json.dumps({
+            "loss": m["loss"], "parts": [m["loss_grid"], m["loss_query"], m["loss_p"],
+                                         m["loss_s"]],
+            "stage_s": st, "step_s": sum(st.values())}), flush=True)
+        if not np.isfinite(m["loss"]):
+            fail(f"[options] train step {i}: loss is not finite")
+    step_fn = make_train_step(cfg, ctx_t, trv.from_cart)
+    gen = torch.Generator(device=dev).manual_seed(step_seed(seed, state.step))
+    fused_round.launches = 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.time()
+        state, metrics = step_fn(state, gen)
+        torch.cuda.synchronize()
+        wall_p = time.time() - t1
+    launches_p = fused_round.launches
+    prof_sum = summarize_profile(prof, wall_p, "profile options train", ranges=(
+        "generate", "forward_backward", "optimizer", "FusedRound", "FusedRoundBackward"))
+    ref = options_model(cfg, seed, dev)     # train()'s own initial weights
+    moved = max(float((p - q).abs().max()) for p, q in zip(
+        model.state_dict().values(), ref.state_dict().values()))
+    gain = float(model.read_in.sum_gain.detach())
+    steady = [sum(st.values()) for _, st in history[1:]]
+    summary = {
+        "card": card, "options": list(MODEL_OPTIONS), "steps": n_steps + 1,
+        "wall_s_3_steps": wall, "s_per_step": float(np.mean(steady)),
+        "fused_round_launches_per_step": launches["train"] / n_steps,
+        "profiled_step_launches": launches_p, "profiled_step_wall_s": wall_p,
+        "max_memory_allocated_bytes": peak, "peak_gib": peak / 2**30,
+        "max_abs_weight_change": moved, "sum_gain": gain,
+        "profiled_loss": float(metrics["loss"])}
+    if prof_sum is not None:
+        summary.update({
+            "device_ms_profiled_step": prof_sum["device_ms"],
+            "fused_round_forward_share_of_device": prof_sum["fused_round_ms"]
+            / prof_sum["device_ms"],
+            "fused_round_backward_share_of_device":
+                prof_sum["ranges_ms"]["FusedRoundBackward"] / prof_sum["device_ms"]})
+    print("[options] train " + json.dumps(summary), flush=True)
+    if not np.isfinite(float(metrics["loss"])) or not moved > 0.0 or gain == 8.0:
+        fail("[options] the profiled step's loss is not finite, or the weights or "
+             "read_in.sum_gain did not move")
+    if launches_p != per_step:
+        fail(f"[options] the profiled step launched the kernel {launches_p} times")
+
+    # (c) those weights served with subgraph pair masks
+    model = model.eval().requires_grad_(False)
+    cfg_s = copy.deepcopy(cfg_inf)
+    cfg_s.graph.use_subgraph = True
+    pipe = InferencePipeline(model, cfg_s, ctx, trv.from_cart, x_query_grid=x_query,
+                             device=dev)
+    kept = [float(m.float().mean()) for m in pipe._pair_masks]
+    events, launches["subgraph"], wall_s = timed_request(pipe, picks)
+    if launches["subgraph"] <= 0:
+        fail("[options] the subgraph request launched the fused_round kernel 0 times")
+    model_cpu = options_model(cfg, seed)
+    model_cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    err_s = check_sweep_window(pipe, model_cpu, cfg_s, ctx, trv, picks, x_query,
+                               tag="options-check subgraph")
+    print("[options] subgraph " + json.dumps({
+        "max_deg_offset": cfg_s.graph.max_deg_offset,
+        "k_nearest_pairs": cfg_s.graph.k_nearest_pairs, "kept_share_by_grid": kept,
+        "events": len(events), "fused_round_launches": launches["subgraph"],
+        "wall_s": wall_s, "stage_s": dict(pipe.stage_seconds),
+        "sweep_window_max_abs_diff": err_s}), flush=True)
+    del pipe, model, model_cpu
+
+    # (d) the bf16-weight sweep with run6's weights
+    pipe_f = InferencePipeline(load_model(cfg_inf), cfg_inf, ctx, trv.from_cart,
+                               x_query_grid=x_query, device=dev)
+    pipe_h = InferencePipeline(load_model(cfg_inf), cfg_inf, ctx, trv.from_cart,
+                               x_query_grid=x_query, sweep_half=True, device=dev)
+    _, s32 = pipe_f.detection_sweep(picks[0], picks[1], picks[2], 0.0, 600.0)
+    torch.cuda.synchronize()
+    fused_round.launches = 0
+    t0 = time.time()
+    _, s16 = pipe_h.detection_sweep(picks[0], picks[1], picks[2], 0.0, 600.0)
+    torch.cuda.synchronize()
+    wall_sweep = time.time() - t0
+    launches["sweep_half"] = fused_round.launches
+    d_sweep = float(np.abs(s32 - s16).max())
+    err_h = check_sweep_window(pipe_h, load_model(cfg_inf), cfg_inf, ctx, trv, picks,
+                               x_query, tol=1e-3, tag="options-check bf16",
+                               sweep_half=True)
+    events, launches["process_sweep_half"], wall_h = timed_request(pipe_h, picks)
+    planted_matches("options bf16", events, picks)
+    print("[options] bf16 sweep " + json.dumps({
+        "max_abs_diff_vs_f32_sweep": d_sweep, "series_max": float(s32.max()),
+        "sweep_launches": launches["sweep_half"], "sweep_wall_s": wall_sweep,
+        "sweep_window_max_abs_diff": err_h, "events": len(events),
+        "process_launches": launches["process_sweep_half"], "process_wall_s": wall_h}),
+        flush=True)
+    if not np.isfinite(d_sweep) or d_sweep > 0.05:
+        fail(f"[options] the bf16-weight sweep differs from the f32 sweep by {d_sweep}")
+    if launches["sweep_half"] <= 0 or launches["process_sweep_half"] <= 0:
+        fail("[options] the bf16-weight sweep launched the fused_round kernel 0 times")
+    del pipe_f, pipe_h
+    torch.cuda.empty_cache()
+    print(f"[options] phase {time.time() - t_phase:.1f} s", flush=True)
+    return bwd, launches
 
 
 # -- phase 9 ---------------------------------------------------------------
@@ -1587,7 +1846,7 @@ def main():
 
     sta_nbr = pipe.sta_nbr
     sta_w = aggregation_weights(pipe.sta_nbr, pipe.sta_nbr_valid)
-    records = check_kernel(sta_nbr, sta_w, args.seed)
+    records, edge_records = check_kernel(sta_nbr, sta_w, args.seed)
 
     picks = make_picks(ctx, trv, args.seed)
     print(f"[picks] {len(picks[0])} picks over 600 s, {len(picks[3])} planted "
@@ -1651,6 +1910,8 @@ def main():
     bwd_records = check_backward(sta_nbr, sta_w, args.seed)
     launches_t = train_phase(run6_train_config(), ctx, pinn, args.seed, card)
     torch.cuda.empty_cache()
+    bwd_edge, launches_o = options_phase(cfg, ctx, trv, x_query, picks, sta_nbr, sta_w,
+                                         args.seed, card)
     # neither phase runs the detector: its kernel must stay unlaunched
     fused_round.launches = 0
     calibrate_phase(ctx, pinn, args.seed)
@@ -1671,16 +1932,18 @@ def main():
         "replaces": "genie_tpu/ops/pallas_fused.py:63",
         "launches": launches_t,
         "launches_by_path": {"homogeneous": launches, "production": launches_p,
-                             "train": launches_t, "calibrate_and_relocate": launches_cr},
-        "max_abs_err": max(r["max_abs_err"] for r in records),
-        "max_abs_diff": max(r["max_abs_err"] for r in records),
+                             "train": launches_t, "calibrate_and_relocate": launches_cr,
+                             "options": launches_o},
+        "max_abs_err": max(r["max_abs_err"] for r in records + edge_records),
+        "max_abs_diff": max(r["max_abs_err"] for r in records + edge_records),
         "ms": r1["ms"], "plain_ms": r1["plain_ms"], "bound_ms": r1["bound_ms"],
         "bound_by": r1["bound_by"], "library_ms": r1["library_ms"],
         "forms": records,
+        "edge_forms": edge_records,
         "backward_check": {"route": "pytorch ops (FusedRound.backward)",
                            "max_rel_grad_err": max(r["max_rel_grad_err"]
-                                                   for r in bwd_records),
-                           "forms": bwd_records},
+                                                   for r in bwd_records + bwd_edge),
+                           "forms": bwd_records, "edge_forms": bwd_edge},
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

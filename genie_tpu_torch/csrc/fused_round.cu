@@ -8,13 +8,22 @@
 // source node of one window) and station i:
 //
 //   agg[r,i]  = sum_k w[i,k] * PReLU(z[r, nbr[i,k]], a_sta)      (station mean)
-//   h1        = [x[r,i] | agg[r,i]     | mask[r,i]] @ W1 + b1
-//   h2        = [x[r,i] | agg_src[r,i] | mask[r,i]] @ W2 + b2
+//   h1        = [x[r,i] | agg[r,i]     | e_sta[i] | mask[r,i]] @ W1 + b1
+//   h2        = [x[r,i] | agg_src[r,i] | e_src[s] | mask[r,i]] @ W2 + b2
 //   out[r,i]  = PReLU([h1 | h2], a_out)
 //
 // z is x in round 1 of DataAggregation and the output of the preceding
 // Dense in the other three rounds; agg_src (the source-axis mean) arrives
 // precomputed, as in the TPU kernel.
+//
+// Edge form (the updated model definition, genie_tpu/models/layers.py:
+// 105-132, 296-321, which the JAX package computes in plain XLA): E = 4
+// channels of mean relative-position embedding, a per-station table e_sta
+// (n_sta, E) and a per-source table e_src (n_src, E) with s = r mod n_src,
+// shared by every window. E is a template parameter; E = 0 (run6, no
+// tables) compiles the code path without them. The tables are a few KB and
+// stay in L1/L2, so the edge form adds E multiply-adds per output column
+// and no per-cell bytes.
 //
 // What bounds it on this card: bytes, narrowly. At the sweep shape (16
 // windows x 500 sources = 8000 rows, 374 stations, C = H = 30) one round-1
@@ -114,11 +123,11 @@ struct Plan {
   int b, t, y, ring, sa, sm, buf, total;
 };
 
-Plan make_plan(int n_sta, int cx, int cz, int m, int k, int h) {
+Plan make_plan(int n_sta, int cx, int cz, int e, int m, int k, int h) {
   Plan p = {};
   const int hp = hpad(h);
   const int S = chunk_of(hp);
-  p.b = (cx + cz + m) * 2 * hp;  // weights first, at offset 0
+  p.b = (cx + cz + e + m) * 2 * hp;  // weights first, at offset 0
   p.t = p.b + 2 * hp;
   // ring buffer: [x run | agg_src run | mask run], or the z run, each run
   // up to 3 floats into its 16-byte line; once a chunk's products are done
@@ -257,17 +266,20 @@ __device__ __forceinline__ void segment_v(int v, float (&acc1)[TS][4],
     segment<HP, TS, 1, H1, H2>(acc1, acc2, in, w, len);
 }
 
-template <int HP>
+template <int HP, int E>
 __global__ void __launch_bounds__(NT, 1)
 fused_round_kernel(const float* __restrict__ x, const float* __restrict__ z,
                    const float* __restrict__ agg_src,
                    const float* __restrict__ mask, const int* __restrict__ nbr,
-                   const float* __restrict__ wts, const float* __restrict__ w1,
+                   const float* __restrict__ wts,
+                   const float* __restrict__ e_sta,
+                   const float* __restrict__ e_src,
+                   const float* __restrict__ w1,
                    const float* __restrict__ b1, const float* __restrict__ w2,
                    const float* __restrict__ b2,
                    const float* __restrict__ slopes, float* __restrict__ out,
-                   int rows, int n_sta, int cx, int cz, int m, int k, int h,
-                   Plan p) {
+                   int rows, int n_sta, int n_src, int cx, int cz, int m, int k,
+                   int h, Plan p) {
   constexpr int S = chunk_of(HP);
   constexpr int NG = HP / 4;    // column groups (4 of h1 + the same 4 of h2)
   constexpr int NSG = NT / NG;  // station groups
@@ -285,7 +297,7 @@ fused_round_kernel(const float* __restrict__ x, const float* __restrict__ z,
   const int tid = threadIdx.x;
   const float a_sta = __ldg(slopes);
   const float a_out = __ldg(slopes + 1);
-  const int d = cx + cz + m;
+  const int d = cx + cz + E + m;
 
   // Zero everything once, so that pad columns and the idle lanes of a
   // partial chunk compute on finite values.
@@ -406,11 +418,28 @@ fused_round_kernel(const float* __restrict__ x, const float* __restrict__ z,
 #pragma unroll
       for (int i = 0; i < TS; ++i) in[i] = mb + (sg + NSG * i) * m;
       segment_v<HP, TS, true, true>(p.vm, acc1, acc2, in,
-                                    wg + (cx + cz) * 2 * HP, m);
+                                    wg + (cx + cz + E) * 2 * HP, m);
       // h1 += sum_k w * Y[nbr]: each lane gathers its own 4 columns
       int st[TS];
 #pragma unroll
       for (int i = 0; i < TS; ++i) st[i] = min(s0 + sg + NSG * i, n_sta - 1);
+      if constexpr (E > 0) {
+        // h1 += e_sta[station] @ W1e; h2 += e_src[source] @ W2e (one source
+        // per row, so its E values are the same for every station)
+        const float* we = wg + (cx + cz) * 2 * HP;
+        const float* es = e_src + (int)(r % n_src) * E;
+#pragma unroll
+        for (int c = 0; c < E; ++c) {
+          const float4 wa = ld4(we + c * 2 * HP);
+          const float4 wb = ld4(we + c * 2 * HP + HP);
+          const float ec = __ldg(es + c);
+#pragma unroll
+          for (int i = 0; i < TS; ++i) {
+            fma4(acc1[i], __ldg(e_sta + st[i] * E + c), wa);
+            fma4(acc2[i], ec, wb);
+          }
+        }
+      }
       const float* yg = Ysh + 4 * g;
       if (tab) {  // two slots per 16-byte table load
         const int kp = (k + 1) & ~1;
@@ -469,12 +498,12 @@ fused_round_kernel(const float* __restrict__ x, const float* __restrict__ z,
   }
 }
 
-// Blocks of fused_round_kernel<HP> that the current device holds at once
+// Blocks of fused_round_kernel<HP, E> that the current device holds at once
 // with `smem` bytes of shared memory each. The SM count and the occupancy
 // are fixed per (device, smem), so they are queried once and kept; the
 // shared-memory attribute is raised only when a launch needs more than any
 // before it on that device.
-template <int HP>
+template <int HP, int E>
 cudaError_t resident_blocks(size_t smem, int* blocks) {
   static std::mutex mu;
   static std::map<std::pair<int, size_t>, int> known;
@@ -488,7 +517,7 @@ cudaError_t resident_blocks(size_t smem, int* blocks) {
     *blocks = it->second;
     return cudaSuccess;
   }
-  auto kern = fused_round_kernel<HP>;
+  auto kern = fused_round_kernel<HP, E>;
   size_t& raised = attr[dev];
   if (smem > raised) {
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -506,27 +535,48 @@ cudaError_t resident_blocks(size_t smem, int* blocks) {
   return cudaSuccess;
 }
 
-template <int HP>
+template <int HP, int E>
 cudaError_t launch(const float* x, const float* z, const float* agg_src,
                    const float* mask, const int* nbr, const float* wts,
-                   const float* w1, const float* b1, const float* w2,
-                   const float* b2, const float* slopes, float* out, int rows,
-                   int n_sta, int cx, int cz, int m, int k, int h,
+                   const float* e_sta, const float* e_src, const float* w1,
+                   const float* b1, const float* w2, const float* b2,
+                   const float* slopes, float* out, int rows, int n_sta,
+                   int n_src, int cx, int cz, int m, int k, int h,
                    cudaStream_t stream) {
-  Plan p = make_plan(n_sta, cx, cz, m, k, h);
+  Plan p = make_plan(n_sta, cx, cz, E, m, k, h);
   p.vx = vec_of(x, cx);
   p.va = vec_of(agg_src, cz);
   p.vm = vec_of(mask, m);
   p.vz = vec_of(z, cz);
   const size_t smem = (size_t)p.total * sizeof(float);
   int resident = 0;
-  const cudaError_t err = resident_blocks<HP>(smem, &resident);
+  const cudaError_t err = resident_blocks<HP, E>(smem, &resident);
   if (err != cudaSuccess) return err;
   const int grid = rows < resident ? rows : resident;
-  fused_round_kernel<HP><<<grid, NT, smem, stream>>>(x, z, agg_src, mask, nbr, wts, w1, b1, w2,
-                                                     b2, slopes, out, rows, n_sta,
-                                                     cx, cz, m, k, h, p);
+  fused_round_kernel<HP, E><<<grid, NT, smem, stream>>>(
+      x, z, agg_src, mask, nbr, wts, e_sta, e_src, w1, b1, w2, b2, slopes, out,
+      rows, n_sta, n_src, cx, cz, m, k, h, p);
   return cudaGetLastError();
+}
+
+// launch<HP, E> for the run-time edge width e (0, or 4 for the edge form)
+template <int HP>
+cudaError_t launch_e(int e, const float* x, const float* z,
+                     const float* agg_src, const float* mask, const int* nbr,
+                     const float* wts, const float* e_sta, const float* e_src,
+                     const float* w1, const float* b1, const float* w2,
+                     const float* b2, const float* slopes, float* out, int rows,
+                     int n_sta, int n_src, int cx, int cz, int m, int k, int h,
+                     cudaStream_t stream) {
+  if (e == 0)
+    return launch<HP, 0>(x, z, agg_src, mask, nbr, wts, e_sta, e_src, w1, b1,
+                         w2, b2, slopes, out, rows, n_sta, n_src, cx, cz, m, k,
+                         h, stream);
+  if (e == 4)
+    return launch<HP, 4>(x, z, agg_src, mask, nbr, wts, e_sta, e_src, w1, b1,
+                         w2, b2, slopes, out, rows, n_sta, n_src, cx, cz, m, k,
+                         h, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -536,29 +586,37 @@ extern "C" {
 // Least shared memory a launch needs, in bytes (the wrapper checks it
 // against the card's per-block limit before launching); the neighbour
 // table is staged beside it only where it fits.
-long long fused_round_smem_bytes(int n_sta, int cx, int cz, int m, int h) {
-  return make_plan(n_sta, cx, cz, m, 0, h).total * (long long)sizeof(float);
+long long fused_round_smem_bytes(int n_sta, int cx, int cz, int e, int m,
+                                 int h) {
+  return make_plan(n_sta, cx, cz, e, m, 0, h).total * (long long)sizeof(float);
 }
 
 // Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok).
-// Weights are row-major (cx + cz + m, h); slopes = {a_sta, a_out}.
+// Weights are row-major (cx + cz + e + m, h); slopes = {a_sta, a_out}.
+// e = 0 (e_sta, e_src unused, may be null) or 4: e_sta (n_sta, e), e_src
+// (n_src, e), row r reading source r mod n_src.
 int fused_round_launch(const float* x, const float* z, const float* agg_src,
                        const float* mask, const int* nbr, const float* wts,
+                       const float* e_sta, const float* e_src,
                        const float* w1, const float* b1, const float* w2,
                        const float* b2, const float* slopes, float* out,
-                       int rows, int n_sta, int cx, int cz, int m, int k,
-                       int h, void* stream) {
+                       int rows, int n_sta, int n_src, int cx, int cz, int e,
+                       int m, int k, int h, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (rows <= 0 || n_sta <= 0) return (int)cudaSuccess;
+  if (e != 0 && n_src <= 0) return (int)cudaErrorInvalidValue;
   if (h <= 8)
-    return (int)launch<8>(x, z, agg_src, mask, nbr, wts, w1, b1, w2, b2,
-                          slopes, out, rows, n_sta, cx, cz, m, k, h, s);
+    return (int)launch_e<8>(e, x, z, agg_src, mask, nbr, wts, e_sta, e_src, w1,
+                            b1, w2, b2, slopes, out, rows, n_sta, n_src, cx, cz,
+                            m, k, h, s);
   if (h <= 16)
-    return (int)launch<16>(x, z, agg_src, mask, nbr, wts, w1, b1, w2, b2,
-                           slopes, out, rows, n_sta, cx, cz, m, k, h, s);
+    return (int)launch_e<16>(e, x, z, agg_src, mask, nbr, wts, e_sta, e_src,
+                             w1, b1, w2, b2, slopes, out, rows, n_sta, n_src,
+                             cx, cz, m, k, h, s);
   if (h <= 32)
-    return (int)launch<32>(x, z, agg_src, mask, nbr, wts, w1, b1, w2, b2,
-                           slopes, out, rows, n_sta, cx, cz, m, k, h, s);
+    return (int)launch_e<32>(e, x, z, agg_src, mask, nbr, wts, e_sta, e_src,
+                             w1, b1, w2, b2, slopes, out, rows, n_sta, n_src,
+                             cx, cz, m, k, h, s);
   return (int)cudaErrorInvalidValue;
 }
 

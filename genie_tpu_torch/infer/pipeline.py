@@ -24,13 +24,20 @@ Port of ``genie_tpu/infer/pipeline.py``. Stages, as in the JAX package:
 Every device stage goes through ``Detector``, whose four dual-relation
 rounds run the fused-round CUDA kernel on the GPU. Without ``x_query_grid``
 the detection queries are k-means packed on the device
-(:func:`build_query_grid`). Subgraph mode and the bf16 sweep are not ported
-yet and raise ``NotImplementedError`` when asked for; the HDF5 catalog is
-written by ``genie_tpu_torch.io.save_catalog`` (``workflow.process_day``).
+(:func:`build_query_grid`). ``cfg.graph.use_subgraph`` zeroes the product
+features outside each grid's ε+kNN pair mask (``graphs/subgraph.py``) in
+every stage that featurizes a window. ``sweep_half`` is the JAX package's
+bf16 sweep: the JAX forward there casts the weights and features to bf16,
+but the f32 pick mask promotes every activation back to f32, so what it
+computes is the f32 forward on bf16-rounded weights and features, cast to
+f16 at the end; the port computes exactly that (the f32 kernel launches),
+for the sweep only. The HDF5 catalog is written by
+``genie_tpu_torch.io.save_catalog`` (``workflow.process_day``).
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import time
 from dataclasses import dataclass
@@ -50,6 +57,7 @@ from genie_tpu_torch.graphs.build import (
     build_station_graph,
     kmeans_packing,
 )
+from genie_tpu_torch.graphs.subgraph import apply_pair_mask, pair_mask
 from genie_tpu_torch.infer.assign import competitive_assignment
 from genie_tpu_torch.infer.cluster import (
     connected_components,
@@ -96,6 +104,17 @@ def _check_assoc_mode(mode: str):
         raise NotImplementedError(f"assoc_mode {mode!r} is not one of {ASSOC_MODES}")
 
 
+def _bf16_rounded(model):
+    """A copy of ``model`` whose floating parameters are rounded through
+    bf16 and kept in their own dtype."""
+    half = copy.deepcopy(model)
+    with torch.no_grad():
+        for p in half.parameters():
+            if p.is_floating_point():
+                p.copy_(p.to(torch.bfloat16).to(p.dtype))
+    return half
+
+
 class InferencePipeline:
     """Holds the model, domain tables and station subnetwork on one device.
 
@@ -105,7 +124,11 @@ class InferencePipeline:
     ``params.load_magnitude_model`` (``dist_model`` may be None); its
     :class:`MagnitudeModel` is moved to ``device`` too. Without
     ``x_query_grid`` and with ``cfg.process.n_query_grid > 0`` the detection
-    queries are k-means packed from a generator seeded with 11."""
+    queries are k-means packed from a generator seeded with 11.
+    ``sweep_half`` keeps a copy of the model whose floating parameters are
+    rounded through bf16, for the detection sweep only (refinement and
+    association keep the model's own weights), and returns the sweep's
+    series as f16."""
 
     def __init__(self, model: Detector, cfg: Config, ctx: DomainContext,
                  trv_from_cart, x_query_grid=None, n_t: int = 9,
@@ -115,15 +138,13 @@ class InferencePipeline:
         self.device = resolve_device(device)
         if featurizer not in FEATURIZERS:
             raise ValueError(f"unknown featurizer {featurizer!r}")
-        if sweep_half:
-            raise NotImplementedError("the bf16 sweep is not ported yet")
-        if cfg.graph.use_subgraph:
-            raise NotImplementedError("subgraph mode is not ported yet")
         _check_assoc_mode(cfg.process.assoc_mode)
         if ctx.sta_cart.device != self.device:
             raise ValueError(f"domain tables on {ctx.sta_cart.device}, "
                              f"pipeline on {self.device}")
         self.model = model.to(self.device).eval()
+        self.sweep_half = sweep_half
+        self._model_half = _bf16_rounded(self.model) if sweep_half else None
         self.featurizer = featurizer
         self.cfg = cfg
         self.ctx = ctx
@@ -136,6 +157,13 @@ class InferencePipeline:
         self._overflow = 0
         # latest arrival lag relative to a window start
         self._max_t = float(ctx.trv_grids.max())
+        # subgraph mode: one (n_src, n_sta) pair mask per grid
+        self._pair_masks = None
+        if cfg.graph.use_subgraph:
+            self._pair_masks = [
+                pair_mask(ctx.grids_lla[g], ctx.sta_lla, cfg.graph.max_deg_offset,
+                          cfg.graph.k_nearest_pairs)
+                for g in range(self.n_grids)]
         self.set_station_mask(sta_ind_use)
         if x_query_grid is None and cfg.process.n_query_grid:
             x_query_grid = build_query_grid(
@@ -182,14 +210,20 @@ class InferencePipeline:
             trv=ctx.trv_grids[g])
 
     def _featurize(self, tpick, ipick, phase, pick_mask, grid: int):
+        """Window features, zeroed outside the grid's pair mask in subgraph
+        mode (as every JAX stage applies ``_apply_subgraph``)."""
         if self.featurizer == "rasterized":
-            return featurize_window_rasterized(
+            feat, fmask = featurize_window_rasterized(
                 tpick, ipick, phase, pick_mask, self.ctx.trv_grids[grid],
                 float(self.cfg.train.src_t_kernel), self.sta_mask,
                 t_lo=-10.0, t_hi=float(self.cfg.model.t_win + self._max_t + 10.0))
-        return featurize_window(tpick, ipick, phase, pick_mask,
-                                self.ctx.trv_grids[grid],
-                                self.cfg.train.src_t_kernel, self.sta_mask)
+        else:
+            feat, fmask = featurize_window(tpick, ipick, phase, pick_mask,
+                                           self.ctx.trv_grids[grid],
+                                           self.cfg.train.src_t_kernel, self.sta_mask)
+        if self._pair_masks is not None:
+            feat, fmask = apply_pair_mask(feat, fmask, self._pair_masks[grid])
+        return feat, fmask
 
     def _to_device(self, wins):
         """Stack host window tuples (tp, ip, ph, pm) into device tensors."""
@@ -200,12 +234,18 @@ class InferencePipeline:
     # -- stage 1: detection sweep -----------------------------------------
     @torch.no_grad()
     def _sweep_batch(self, tp, ip, ph, pm, grid: int):
-        """(B, n_q, n_t) query detection scores of one window batch."""
+        """(B, n_q, n_t) query detection scores of one window batch; with
+        ``sweep_half`` the bf16-rounded model on bf16-rounded features,
+        scores in f16."""
         feat, fmask = self._featurize(tp, ip, ph, pm, grid)
-        _, x = self.model.forward_detection_only(
+        model = self.model
+        if self.sweep_half:
+            model = self._model_half
+            feat = feat.to(torch.bfloat16).to(feat.dtype)
+        _, x = model.forward_detection_only(
             feat, fmask, self._graphs[grid], self.ctx.sta_cart, self.x_query,
             self._xq_idx[grid], self.t_query)
-        return x[..., 0]
+        return x[..., 0].to(torch.float16 if self.sweep_half else x.dtype)
 
     def _window_picks(self, pick_t, pick_sta, pick_phase, t0):
         """Pad/slice the day pick arrays to one window (host side), keeping

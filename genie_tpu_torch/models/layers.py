@@ -12,7 +12,9 @@ The four dual-relation rounds (two in :class:`DataAggregation`, two in
 (``ops/fused_round.py``) through ``FusedRound``, which gives it a gradient
 for training. The station mean runs inside it over the
 ``(sta_nbr, sta_w)`` table; the source-axis mean ``A_src @ x`` stays a
-``torch.matmul`` (plain XLA in the JAX package).
+``torch.matmul`` (plain XLA in the JAX package). With ``use_edges`` (the
+updated model definition) the kernel takes the per-station and per-source
+relative-position tables of :func:`mean_rel_pos_embed` as its edge form.
 """
 
 from __future__ import annotations
@@ -57,6 +59,26 @@ class ProductTables(NamedTuple):
     sta_nbr: torch.Tensor  # (n_sta, k_sta) int32 station kNN
     sta_w: torch.Tensor    # (n_sta, k_sta) f32 valid/deg weights
     a_src: torch.Tensor    # (n_src, n_src) row-stochastic source-kNN mean
+    # edge tables of the updated model definition, None without it
+    e_sta: torch.Tensor | None = None  # (n_sta, 4)
+    e_src: torch.Tensor | None = None  # (n_src, 4)
+
+
+def mean_rel_pos_embed(pos, nbr, scale_rel, valid=None):
+    """Per-receiver mean of Gaussian-embedded relative sender positions
+    (``layers.py:42-68``): ``sign(Δ)·exp(−Δ²/2σ²)`` of (Δxyz, ‖Δ‖) with
+    ``‖Δ‖ = sqrt(ΣΔ² + 1e-12)`` (so a self-edge's norm channel is
+    ``exp(-0.5e-12/σ²) ≈ 1`` and its xyz channels ``sign(0) = 0``), averaged
+    over the k neighbours, or over the ``valid`` ones divided by
+    ``max(count, 1)``. pos (n, 3); nbr (n, k); valid (n, k) bool → (n, 4)."""
+    rel = pos[nbr.long()] - pos[:, None, :]                # x_j − x_i, (n, k, 3)
+    nrm = torch.sqrt((rel ** 2).sum(-1, keepdim=True) + 1e-12)
+    rel = torch.cat((rel, nrm), dim=-1)
+    emb = torch.sign(rel) * torch.exp(-0.5 * rel ** 2 / scale_rel ** 2)
+    if valid is None:
+        return emb.mean(dim=1)
+    cnt = torch.clamp_min(valid.sum(dim=1, keepdim=True), 1).to(emb.dtype)
+    return (emb * valid[..., None].to(emb.dtype)).sum(dim=1) / cnt
 
 
 def _slopes(a, b):
@@ -67,20 +89,24 @@ class DataAggregation(nn.Module):
     """Two rounds of dual-relation conv on the station×source product graph
     (``layers.py:71-132``, ref module.py:52-98). Input (B, n_src, n_sta,
     in_ch) + mask (B, n_src, n_sta, n_mask); output (B, n_src, n_sta,
-    2·out_ch). The reference's unused ``l1_*_1`` linears are not created."""
+    2·out_ch). The reference's unused ``l1_*_1`` linears are not created.
+    ``use_edges`` widens the ``l*_t*_2`` linears by the 4 edge channels, in
+    the JAX column order ``[x ‖ agg ‖ e ‖ mask]``, and the rounds read the
+    edge tables of :class:`ProductTables`."""
 
     def __init__(self, in_channels: int = 4, out_channels: int = 15,
-                 n_hidden: int = 30, n_mask: int = 4):
+                 n_hidden: int = 30, n_mask: int = 4, use_edges: bool = False):
         super().__init__()
         h = n_hidden
+        n_e = 4 if use_edges else 0
         _prelus(self, 7)  # act, act11, act12, act1, act21, act22, act2
         self.init_trns = nn.Linear(in_channels + n_mask, h)
-        self.l1_t1_2 = nn.Linear(2 * h + n_mask, h)
-        self.l1_t2_2 = nn.Linear(2 * h + n_mask, h)
+        self.l1_t1_2 = nn.Linear(2 * h + n_e + n_mask, h)
+        self.l1_t2_2 = nn.Linear(2 * h + n_e + n_mask, h)
         self.l2_t1_1 = nn.Linear(2 * h, h)
         self.l2_t2_1 = nn.Linear(2 * h, h)
-        self.l2_t1_2 = nn.Linear(3 * h + n_mask, out_channels)
-        self.l2_t2_2 = nn.Linear(3 * h + n_mask, out_channels)
+        self.l2_t1_2 = nn.Linear(3 * h + n_e + n_mask, out_channels)
+        self.l2_t2_2 = nn.Linear(3 * h + n_e + n_mask, out_channels)
 
     def forward(self, tr, mask, tables: ProductTables):
         act, act11, act12, act1, act21, act22, act2 = self.acts
@@ -91,32 +117,41 @@ class DataAggregation(nn.Module):
         tr = FusedRound.apply(tr, tr, agg_src, mask, tables.sta_nbr, tables.sta_w,
                               self.l1_t1_2.weight, self.l1_t1_2.bias,
                               self.l1_t2_2.weight, self.l1_t2_2.bias,
-                              _slopes(act11, act1))
+                              _slopes(act11, act1), tables.e_sta, tables.e_src)
         # round 2: Dense before each PReLU, applied first as a plain linear
         z = self.l2_t1_1(tr).contiguous()
         agg_src = matmul_mean_src_axis(act22(self.l2_t2_1(tr)), tables.a_src)
         return FusedRound.apply(tr, z, agg_src, mask, tables.sta_nbr, tables.sta_w,
                                 self.l2_t1_2.weight, self.l2_t1_2.bias,
                                 self.l2_t2_2.weight, self.l2_t2_2.bias,
-                                _slopes(act21, act2))
+                                _slopes(act21, act2), tables.e_sta, tables.e_src)
 
 
 class BipartiteReadIn(nn.Module):
     """Collapse product features onto source nodes (sum over stations, gated
-    by pick presence; ``layers.py:135-160``)."""
+    by pick presence; ``layers.py:135-160``). ``normalize`` divides the sum
+    by the gated station count (at least 1) times a learnable ``sum_gain``,
+    initialised to 8.0."""
 
-    def __init__(self, ndim_in: int = 30, ndim_out: int = 15):
+    def __init__(self, ndim_in: int = 30, ndim_out: int = 15,
+                 normalize: bool = False):
         super().__init__()
         _prelus(self, 2)  # act1, act2
         self.fc1 = nn.Linear(ndim_in + 3, ndim_in)
         self.fc2 = nn.Linear(ndim_in, ndim_out)
+        self.normalize = normalize
+        if normalize:
+            self.sum_gain = nn.Parameter(torch.tensor(8.0))
 
     def forward(self, x, edge_feat, mask, sta_mask):
         act1, act2 = self.acts
         ef = edge_feat.expand(*x.shape[:-1], edge_feat.shape[-1])
         msg = act1(self.fc1(torch.cat((x, ef), dim=-1)))
         gate = mask.amax(dim=-1, keepdim=True) * sta_mask[:, None].to(x.dtype)
-        return act2(self.fc2((msg * gate).sum(dim=-2)))
+        out = (msg * gate).sum(dim=-2)
+        if self.normalize:
+            out = out * self.sum_gain / torch.clamp_min(gate.sum(dim=-2), 1.0)
+        return act2(self.fc2(out))
 
 
 class SpatialAggregation(nn.Module):
@@ -257,22 +292,24 @@ class BipartiteReadOut(nn.Module):
 class DataAggregationAssociationPhase(nn.Module):
     """Second dual-relation conv for the association stage
     (``layers.py:270-321``): the first-round inputs pass through their
-    ``l1_*_1`` linears."""
+    ``l1_*_1`` linears. ``use_edges`` as in :class:`DataAggregation`."""
 
     def __init__(self, in_channels: int = 15, out_channels: int = 15,
-                 n_hidden: int = 30, n_latent: int = 30, n_mask: int = 5):
+                 n_hidden: int = 30, n_latent: int = 30, n_mask: int = 5,
+                 use_edges: bool = False):
         super().__init__()
         h = n_hidden
+        n_e = 4 if use_edges else 0
         _prelus(self, 7)  # act, act11, act12, act1, act21, act22, act2
         self.init_trns = nn.Linear(in_channels + n_latent + n_mask, h)
         self.l1_t1_1 = nn.Linear(h, h)
         self.l1_t2_1 = nn.Linear(h, h)
-        self.l1_t1_2 = nn.Linear(2 * h + n_mask, h)
-        self.l1_t2_2 = nn.Linear(2 * h + n_mask, h)
+        self.l1_t1_2 = nn.Linear(2 * h + n_e + n_mask, h)
+        self.l1_t2_2 = nn.Linear(2 * h + n_e + n_mask, h)
         self.l2_t1_1 = nn.Linear(2 * h, h)
         self.l2_t2_1 = nn.Linear(2 * h, h)
-        self.l2_t1_2 = nn.Linear(3 * h + n_mask, out_channels)
-        self.l2_t2_2 = nn.Linear(3 * h + n_mask, out_channels)
+        self.l2_t1_2 = nn.Linear(3 * h + n_e + n_mask, out_channels)
+        self.l2_t2_2 = nn.Linear(3 * h + n_e + n_mask, out_channels)
 
     def forward(self, tr, latent, mask1, mask2, tables: ProductTables):
         act, act11, act12, act1, act21, act22, act2 = self.acts
@@ -288,7 +325,7 @@ class DataAggregationAssociationPhase(nn.Module):
             agg_src = matmul_mean_src_axis(a_src(t2_1(tr)), tables.a_src)
             tr = FusedRound.apply(tr, z, agg_src, mask, tables.sta_nbr, tables.sta_w,
                                   t1_2.weight, t1_2.bias, t2_2.weight, t2_2.bias,
-                                  _slopes(a_sta, a_out))
+                                  _slopes(a_sta, a_out), tables.e_sta, tables.e_src)
         return tr
 
 

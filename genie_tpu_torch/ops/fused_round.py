@@ -7,14 +7,19 @@ serve all four dual-relation rounds of the trunk (``DataAggregation`` rounds
 row r and station i:
 
     agg[r, i] = Σ_k w[i, k] · PReLU(z[r, nbr[i, k]], a_sta)
-    h1 = [x[r, i] ‖ agg[r, i]     ‖ mask[r, i]] @ W1ᵀ + b1
-    h2 = [x[r, i] ‖ agg_src[r, i] ‖ mask[r, i]] @ W2ᵀ + b2
+    h1 = [x[r, i] ‖ agg[r, i]     ‖ e_sta[i] ‖ mask[r, i]] @ W1ᵀ + b1
+    h2 = [x[r, i] ‖ agg_src[r, i] ‖ e_src[s] ‖ mask[r, i]] @ W2ᵀ + b2
     out[r, i] = PReLU([h1 ‖ h2], a_out)
 
 ``(nbr, w)`` is the station kNN table with ``w = valid/deg``: exactly the
 nonzeros that ``aggregation_matrix`` puts in the dense ``A_sta``. ``z`` is
 ``x`` in round 1 of ``DataAggregation`` and the output of the preceding
 ``Dense`` otherwise; ``agg_src`` (the source-axis mean) arrives precomputed.
+The edge tables ``e_sta`` (n_sta, 4) and ``e_src`` (n_src, 4), with ``s``
+the row's source, are the edge form of the updated model definition (the
+JAX ``DataAggregation(use_edges=True)``, ``layers.py:105-132``, which
+concatenates them after the station and source means); without them (run6)
+the ``e`` columns are absent.
 
 :func:`fused_round` launches the kernel (``csrc/fused_round.cu``) on CUDA
 tensors and raises if it cannot; it takes :func:`fused_round_plain` only for
@@ -96,30 +101,38 @@ class _PReLU(torch.autograd.Function):
         return out
 
 
-def fused_round_plain(x, z, agg_src, mask, nbr, w, w1, b1, w2, b2, slopes):
-    """Plain PyTorch twin of the kernel. x (..., n_sta, Cx); z, agg_src
-    (..., n_sta, Cz); mask (..., n_sta, M); nbr/w (n_sta, k); w1/w2
-    ``Linear.weight`` layout (H, Cx+Cz+M); slopes (2,) = (a_sta, a_out).
-    Returns (..., n_sta, 2H)."""
+def fused_round_plain(x, z, agg_src, mask, nbr, w, w1, b1, w2, b2, slopes,
+                      e_sta=None, e_src=None):
+    """Plain PyTorch twin of the kernel. x (..., n_src, n_sta, Cx); z,
+    agg_src (..., n_sta, Cz); mask (..., n_sta, M); nbr/w (n_sta, k); w1/w2
+    ``Linear.weight`` layout (H, Cx+Cz+E+M); slopes (2,) = (a_sta, a_out);
+    the edge form's e_sta (n_sta, E) and e_src (n_src, E), or neither (E =
+    0). Returns (..., n_sta, 2H)."""
     return prelu(_pre_activations(x, z, agg_src, mask, nbr, w, w1, b1, w2, b2,
-                                   slopes)[2], slopes[1])
+                                   slopes, e_sta, e_src)[2], slopes[1])
 
 
-def _pre_activations(x, z, agg_src, mask, nbr, w, w1, b1, w2, b2, slopes):
+def _pre_activations(x, z, agg_src, mask, nbr, w, w1, b1, w2, b2, slopes,
+                     e_sta=None, e_src=None):
     """The plain twin up to its output PReLU: (u1, u2, [h1 ‖ h2])."""
     zp = prelu(z, slopes[0])
     agg_sta = (zp[..., nbr.long(), :] * w[..., None]).sum(dim=-2)
-    u1 = torch.cat((x, agg_sta, mask), dim=-1)
-    u2 = torch.cat((x, agg_src, mask), dim=-1)
+    if e_sta is None:
+        u1 = torch.cat((x, agg_sta, mask), dim=-1)
+        u2 = torch.cat((x, agg_src, mask), dim=-1)
+    else:
+        shp = (*x.shape[:-1], e_sta.shape[-1])
+        u1 = torch.cat((x, agg_sta, e_sta.expand(shp), mask), dim=-1)
+        u2 = torch.cat((x, agg_src, e_src[:, None, :].expand(shp), mask), dim=-1)
     return u1, u2, torch.cat((F.linear(u1, w1, b1), F.linear(u2, w2, b2)), dim=-1)
 
 
 def _bind(lib):
     p = ctypes.c_void_p
     i = ctypes.c_int
-    lib.fused_round_launch.argtypes = [p] * 12 + [i] * 7 + [p]
+    lib.fused_round_launch.argtypes = [p] * 14 + [i] * 9 + [p]
     lib.fused_round_launch.restype = ctypes.c_int
-    lib.fused_round_smem_bytes.argtypes = [i] * 5
+    lib.fused_round_smem_bytes.argtypes = [i] * 6
     lib.fused_round_smem_bytes.restype = ctypes.c_longlong
     lib.fused_round_error_string.argtypes = [i]
     lib.fused_round_error_string.restype = ctypes.c_char_p
@@ -134,13 +147,21 @@ def _library():
     return _bind(_build.load("fused_round"))
 
 
-def fused_round(x, z, agg_src, mask, nbr, w, w1, b1, w2, b2, slopes):
+# edge widths the kernel is built for (a template parameter)
+KERNEL_EDGE_WIDTHS = (0, 4)
+
+
+def fused_round(x, z, agg_src, mask, nbr, w, w1, b1, w2, b2, slopes,
+                e_sta=None, e_src=None):
     """One fused dual-relation round (see module docstring); arguments as
     :func:`fused_round_plain`. Leading dimensions of x/z/agg_src/mask are
-    flattened into rows."""
+    flattened into rows; with the edge tables, row r reads source
+    ``r mod n_src``."""
+    if (e_sta is None) != (e_src is None):
+        raise ValueError("fused_round: give both edge tables or neither")
     if x.device.type == "cpu":
         return fused_round_plain(x, z, agg_src, mask, nbr, w, w1, b1, w2, b2,
-                                 slopes)
+                                 slopes, e_sta, e_src)
     if x.device.type != "cuda":
         raise ValueError(f"fused_round: unsupported device {x.device}")
     n_sta, cx = x.shape[-2:]
@@ -152,6 +173,17 @@ def fused_round(x, z, agg_src, mask, nbr, w, w1, b1, w2, b2, slopes):
     rows = 1
     for s in lead:
         rows *= int(s)
+    e, n_src = 0, 0
+    if e_sta is not None:
+        e = e_sta.shape[-1]
+        n_src = int(x.shape[-3]) if x.dim() >= 3 else -1
+        if e not in KERNEL_EDGE_WIDTHS:
+            raise ValueError(f"fused_round: kernel takes edge widths "
+                             f"{KERNEL_EDGE_WIDTHS}, got {e}")
+        if tuple(e_sta.shape) != (n_sta, e) or tuple(e_src.shape) != (n_src, e):
+            raise ValueError(f"fused_round: edge tables must be ({n_sta}, {e}) "
+                             f"and (n_src = x.shape[-3], {e}), got "
+                             f"{tuple(e_sta.shape)} and {tuple(e_src.shape)}")
     w1t = w1.t().contiguous()
     w2t = w2.t().contiguous()
     nbr = nbr.to(torch.int32).contiguous()
@@ -161,6 +193,8 @@ def fused_round(x, z, agg_src, mask, nbr, w, w1, b1, w2, b2, slopes):
     slopes = slopes.reshape(2).to(torch.float32).contiguous()
     tensors = dict(x=x, z=z, agg_src=agg_src, mask=mask, nbr=nbr, w=w, w1=w1t,
                    b1=b1, w2=w2t, b2=b2, slopes=slopes)
+    if e:
+        tensors.update(e_sta=e_sta.contiguous(), e_src=e_src.contiguous())
     for name, t in tensors.items():
         if t.device != x.device:
             raise ValueError(f"fused_round: {name} on {t.device}, x on {x.device}")
@@ -174,7 +208,7 @@ def fused_round(x, z, agg_src, mask, nbr, w, w1, b1, w2, b2, slopes):
         if tuple(t.shape) != (*lead, n_sta, width):
             raise ValueError(f"fused_round: {name} shape {tuple(t.shape)} "
                              f"does not match x {tuple(x.shape)}")
-    d = cx + cz + m
+    d = cx + cz + e + m
     if tuple(w1t.shape) != (d, h) or tuple(w2t.shape) != (d, h):
         raise ValueError(f"fused_round: weights must be ({h}, {d}), got "
                          f"{tuple(w1.shape)} and {tuple(w2.shape)}")
@@ -185,18 +219,20 @@ def fused_round(x, z, agg_src, mask, nbr, w, w1, b1, w2, b2, slopes):
     if h > 32:
         raise ValueError(f"fused_round: kernel supports H <= 32, got {h}")
     lib = _library()
-    smem = int(lib.fused_round_smem_bytes(n_sta, cx, cz, m, h))
+    smem = int(lib.fused_round_smem_bytes(n_sta, cx, cz, e, m, h))
     if smem > MAX_SMEM_PER_BLOCK:
         raise ValueError(f"fused_round: needs {smem} B of shared memory per "
                          f"block, over the {MAX_SMEM_PER_BLOCK} B limit")
     out = torch.empty((*lead, n_sta, 2 * h), dtype=torch.float32, device=x.device)
+    e_ptrs = ((tensors["e_sta"].data_ptr(), tensors["e_src"].data_ptr()) if e
+              else (None, None))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.fused_round_launch(
             x.data_ptr(), z.data_ptr(), agg_src.data_ptr(), mask.data_ptr(),
-            nbr.data_ptr(), w.data_ptr(), w1t.data_ptr(), b1.data_ptr(),
+            nbr.data_ptr(), w.data_ptr(), *e_ptrs, w1t.data_ptr(), b1.data_ptr(),
             w2t.data_ptr(), b2.data_ptr(), slopes.data_ptr(), out.data_ptr(),
-            rows, n_sta, cx, cz, m, k, h, stream)
+            rows, n_sta, n_src, cx, cz, e, m, k, h, stream)
     if err != 0:
         msg = lib.fused_round_error_string(err).decode()
         raise RuntimeError(f"fused_round kernel launch failed: CUDA error "
@@ -217,7 +253,8 @@ def _dprelu(h, a):
 
 
 def fused_round_backward_plain(grad_out, x, z, agg_src, mask, nbr, w, w1, b1,
-                               w2, b2, slopes, needs=(True,) * 8):
+                               w2, b2, slopes, needs=(True,) * 8, e_sta=None,
+                               e_src=None):
     """Analytic gradient of :func:`fused_round_plain` given ``grad_out``
     (..., n_sta, 2H). The pre-activations are recomputed from the inputs by
     the plain twin's own ops, so where a pre-activation lies within
@@ -226,12 +263,13 @@ def fused_round_backward_plain(grad_out, x, z, agg_src, mask, nbr, w, w1, b1,
     mean's transpose is the transposed dense station matrix (``A[i, j] =
     Σ_k w[i, k]·[nbr[i, k] = j]``): ``d zp = Aᵀ · d agg``. ``needs`` flags
     (x, z, agg_src, w1, b1, w2, b2, slopes); returns their gradients in
-    that order, ``None`` where not needed."""
+    that order, ``None`` where not needed. The edge tables, like ``mask``,
+    take no gradient; W1's and W2's edge columns do."""
     cx = x.shape[-1]
     cz = z.shape[-1]
     h = w1.shape[0]
     u1, u2, hcat = _pre_activations(x, z, agg_src, mask, nbr, w, w1, b1, w2, b2,
-                                    slopes)
+                                    slopes, e_sta, e_src)
     gh = grad_out * _dprelu(hcat, slopes[1])
     gh1, gh2 = gh[..., :h], gh[..., h:]
     g_x = g_z = g_src = g_w1 = g_b1 = g_w2 = g_b2 = g_sl = None
@@ -244,7 +282,7 @@ def fused_round_backward_plain(grad_out, x, z, agg_src, mask, nbr, w, w1, b1,
         g_w2 = gh2.reshape(-1, h).t() @ u2.reshape(-1, u2.shape[-1])
     if needs[6]:
         g_b2 = gh2.sum(dim=lead)
-    gu1 = gh1 @ w1[:, :cx + cz]          # mask takes no gradient
+    gu1 = gh1 @ w1[:, :cx + cz]          # edge tables and mask take none
     gu2 = gh2 @ w2[:, :cx + cz]
     if needs[0]:
         g_x = gu1[..., :cx] + gu2[..., :cx]
@@ -271,22 +309,28 @@ class FusedRound(torch.autograd.Function):
     JAX package has no backward kernel (its trainer differentiates the plain
     XLA round), so there is no TPU kernel to port for it; a hand-written
     backward waits on a profile that shows this one holding the step back.
-    ``mask``, ``nbr`` and ``w`` take no gradient."""
+    ``mask``, ``nbr``, ``w`` and the edge tables ``e_sta``/``e_src`` (absent
+    in the run6 form) take no gradient."""
 
     @staticmethod
-    def forward(ctx, x, z, agg_src, mask, nbr, w, w1, b1, w2, b2, slopes):
-        ctx.save_for_backward(x, z, agg_src, mask, nbr, w, w1, b1, w2, b2, slopes)
-        return fused_round(x, z, agg_src, mask, nbr, w, w1, b1, w2, b2, slopes)
+    def forward(ctx, x, z, agg_src, mask, nbr, w, w1, b1, w2, b2, slopes,
+                e_sta=None, e_src=None):
+        ctx.save_for_backward(x, z, agg_src, mask, nbr, w, w1, b1, w2, b2, slopes,
+                              e_sta, e_src)
+        return fused_round(x, z, agg_src, mask, nbr, w, w1, b1, w2, b2, slopes,
+                           e_sta, e_src)
 
     @staticmethod
     def backward(ctx, grad_out):
-        x, z, agg_src, mask, nbr, w, w1, b1, w2, b2, slopes = ctx.saved_tensors
+        (x, z, agg_src, mask, nbr, w, w1, b1, w2, b2, slopes, e_sta,
+         e_src) = ctx.saved_tensors
         n = ctx.needs_input_grad
         needs = (n[0], n[1], n[2], n[6], n[7], n[8], n[9], n[10])
         g_x, g_z, g_src, g_w1, g_b1, g_w2, g_b2, g_sl = fused_round_backward_plain(
             grad_out.contiguous(), x, z, agg_src, mask, nbr, w, w1, b1, w2, b2,
-            slopes, needs)
-        return g_x, g_z, g_src, None, None, None, g_w1, g_b1, g_w2, g_b2, g_sl
+            slopes, needs, e_sta, e_src)
+        return (g_x, g_z, g_src, None, None, None, g_w1, g_b1, g_w2, g_b2, g_sl,
+                None, None)
 
 
 def fused_dual_round(x, agg_src, mask, a_sta, w1, b1, w2, b2, slopes):

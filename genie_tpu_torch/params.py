@@ -21,7 +21,8 @@ arrays; ``load_adam_state`` returns the Adam moments under the port's names.
   params) and maps onto ``arrivals.chunks``;
 * the magnitude model's raw parameters (``mag_coef``,
   ``epicenter_spatial_coef``, ``depth_spatial_coef`` and the root-level
-  ``bias``) keep their names (``_RAW_LEAVES``).
+  ``bias``) and the detector read-in's ``sum_gain`` (``normalize_readin``)
+  keep their names (``_RAW_LEAVES``).
 
 :func:`to_flax` is the reverse of ``transplant``: a module's weights as a
 flax weight tree, which the JAX package's ``Detector.apply`` takes.
@@ -89,7 +90,7 @@ class _NoOptaxUnpickler(pickle.Unpickler):
 _RAW_LEAVES = {"mag_coef": "mag_coef",
                "epicenter_spatial_coef": "epicenter_spatial_coef",
                "depth_spatial_coef": "depth_spatial_coef",
-               "bias": "bias"}
+               "bias": "bias", "sum_gain": "sum_gain"}
 
 
 def _load_pickle(path) -> dict:
@@ -175,7 +176,7 @@ def transplant(flax_tree: dict) -> dict:
         if not name:
             if leaf not in _RAW_LEAVES:
                 raise KeyError(f"unrecognised root-level flax leaf {path!r}")
-            sd[_RAW_LEAVES[leaf]] = torch.from_numpy(np.ascontiguousarray(arr))
+            sd[_RAW_LEAVES[leaf]] = torch.from_numpy(np.array(arr))
         elif leaf == "kernel":
             sd[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(arr.T))
         elif leaf == "bias":
@@ -183,8 +184,8 @@ def transplant(flax_tree: dict) -> dict:
         elif leaf == "a":
             sd[f"{name}.a"] = torch.from_numpy(np.asarray(arr, np.float32).reshape(()))
         elif leaf in _RAW_LEAVES:
-            sd[f"{name}.{_RAW_LEAVES[leaf]}"] = torch.from_numpy(
-                np.ascontiguousarray(arr))
+            # np.array keeps a 0-d leaf 0-d (ascontiguousarray makes it 1-d)
+            sd[f"{name}.{_RAW_LEAVES[leaf]}"] = torch.from_numpy(np.array(arr))
         else:
             raise KeyError(f"unrecognised flax leaf {path!r}")
     return sd

@@ -388,8 +388,10 @@ def restart_from(path, state: TrainState) -> TrainState:
 def train(cfg: Config, ctx: DomainContext, trv, out_dir, n_steps=None,
           log_every: int = 20, seed: int = 0, restart=False,
           profile_at: int | None = None):
-    """Training loop on the context's device: flax-default initial
-    weights, one synthetic batch and one Adam step per iteration, the
+    """Training loop on the context's device: a ``Detector`` with
+    ``cfg.model``'s options (``use_absolute_pos``,
+    ``use_updated_model_definition``, ``normalize_readin``), flax-default
+    initial weights, one synthetic batch and one Adam step per iteration, the
     reference's per-step text log ``{region}_output_ver_1.txt`` (the line
     format of the JAX ``workflow.train``), and a checkpoint ``ckpt.pkl`` every
     ``checkpoint_every`` steps and at the end.
@@ -407,16 +409,14 @@ def train(cfg: Config, ctx: DomainContext, trv, out_dir, n_steps=None,
     from genie_tpu_torch.train.trainer import (init_train_state, make_train_step,
                                                step_seed)
 
-    if cfg.model.normalize_readin:
-        raise NotImplementedError("normalize_readin is not ported yet")
     dev = ctx.sta_cart.device
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     model = Detector(scale_rel=cfg.model.scale_rel, kernel_sig_t=cfg.model.kernel_sig_t,
                      use_phase_types=cfg.model.use_phase_types,
                      use_absolute_pos=cfg.model.use_absolute_pos,
-                     use_updated_model_definition=cfg.model.use_updated_model_definition
-                     ).to(dev)
+                     use_updated_model_definition=cfg.model.use_updated_model_definition,
+                     normalize_readin=cfg.model.normalize_readin).to(dev)
     gen = torch.Generator(device=dev)
     state = init_train_state(model, cfg, gen.manual_seed(seed))
     if restart is True:

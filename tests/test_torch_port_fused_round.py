@@ -111,6 +111,56 @@ def test_round_forms_match_jax_expressions(form):
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
 
 
+def _edge_tables(rng, n_sta, n_src, e=4):
+    """Tables of the magnitude of mean_rel_pos_embed's (|e| <= 1, signed)."""
+    e_sta = (rng.uniform(-1, 1, (n_sta, e))).astype(np.float32)
+    e_src = (rng.uniform(-1, 1, (n_src, e))).astype(np.float32)
+    return e_sta, e_src
+
+
+@pytest.mark.parametrize("form", ["round1", "round2", "assoc"])
+def test_edge_round_forms_match_jax_expressions(form):
+    """The edge form (updated model definition): e_sta after the station
+    mean in h1, e_src after the source mean in h2, as the JAX layers
+    concatenate them (layers.py:105-132, 296-321)."""
+    jnp = pytest.importorskip("jax.numpy")
+    from genie_tpu.ops.segment import mean_sta_axis
+
+    cx, cz, m, h, same = {"round1": (30, 30, 4, 30, True), "round2": (60, 30, 4, 15, False),
+                          "assoc": (30, 30, 5, 30, False)}[form]
+    rng = np.random.default_rng(8)
+    B, n_src, n_sta, k, e = 2, 12, 9, 4, 4
+    x = rng.normal(size=(B, n_src, n_sta, cx)).astype(np.float32)
+    z = x if same else rng.normal(size=(B, n_src, n_sta, cz)).astype(np.float32)
+    agg_src = rng.normal(size=(B, n_src, n_sta, cz)).astype(np.float32)
+    mask = (rng.random((B, n_src, n_sta, m)) > 0.5).astype(np.float32)
+    nbr, valid = _knn_table(rng, n_sta, k)
+    e_sta, e_src = _edge_tables(rng, n_sta, n_src, e)
+    d = cx + cz + e + m
+    w1, w2 = (rng.normal(size=(d, h)).astype(np.float32) * 0.2 for _ in range(2))
+    b1, b2 = (rng.normal(size=(h,)).astype(np.float32) for _ in range(2))
+    a_sta, a_out = 0.21, 0.13
+
+    def prelu(v, a):
+        return jnp.maximum(v, 0.0) + a * jnp.minimum(v, 0.0)
+
+    es = jnp.broadcast_to(jnp.asarray(e_sta)[None], (n_src, n_sta, e))
+    eo = jnp.broadcast_to(jnp.asarray(e_src)[:, None], (n_src, n_sta, e))
+    want = []
+    for b in range(B):
+        agg = mean_sta_axis(prelu(jnp.asarray(z[b]), a_sta), jnp.asarray(nbr),
+                            jnp.asarray(valid))
+        h1 = jnp.concatenate((x[b], agg, es, mask[b]), -1) @ w1 + b1
+        h2 = jnp.concatenate((x[b], agg_src[b], eo, mask[b]), -1) @ w2 + b2
+        want.append(np.asarray(prelu(jnp.concatenate((h1, h2), -1), a_out)))
+    T = torch.from_numpy
+    w = aggregation_weights(T(nbr), T(valid))
+    got = fused_round(T(x), T(z), T(agg_src), T(mask), T(nbr), w, T(w1.T.copy()),
+                      T(b1), T(w2.T.copy()), T(b2), torch.tensor([a_sta, a_out]),
+                      T(e_sta), T(e_src))
+    np.testing.assert_allclose(got.numpy(), np.stack(want), atol=ATOL, rtol=0)
+
+
 def test_aggregation_matrix_matches_jax_and_neighbour_lists_are_exact():
     jnp = pytest.importorskip("jax.numpy")
     from genie_tpu.ops.segment import aggregation_matrix as jax_aggregation_matrix
@@ -276,6 +326,73 @@ def test_cuda_kernel_matches_plain(n_sta, k, lead, offset):
         assert float((got - want).abs().max()) <= 1e-4, (cx, cz, m, h)
 
 
+# n_sta, k, leading dims (the last is n_src), float offset; as _CUDA_CASES
+_CUDA_EDGE_CASES = [(37, 8, (3, 20), 0), (600, 5, (2, 20), 0), (374, 8, (16, 500), 0),
+                    (1, 1, (5,), 0), (374, 8, (133,), 0), (374, 8, (3, 7), 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_sta,k,lead,offset", _CUDA_EDGE_CASES,
+                         ids=[f"sta{c[0]}-k{c[1]}-lead{'x'.join(map(str, c[2]))}-off{c[3]}"
+                              for c in _CUDA_EDGE_CASES])
+def test_cuda_edge_kernel_matches_plain(n_sta, k, lead, offset):
+    """Needs the card: the kernel's edge form (E = 4, the updated model
+    definition) against its plain twin for the three round forms and an
+    H = 8 form, f32 with TF32 off, max |kernel - plain| <= 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    rng = np.random.default_rng(1)
+    if n_sta > k:
+        nbr, valid = _knn_table(rng, n_sta, k)
+    else:
+        nbr, valid = np.zeros((n_sta, k), np.int32), np.ones((n_sta, k), bool)
+    nbr = torch.from_numpy(nbr).to(dev)
+    w = aggregation_weights(nbr, torch.from_numpy(valid).to(dev))
+    n_src = lead[-1]
+
+    def alloc(shape, fill):
+        n = int(np.prod(shape))
+        flat = torch.empty(n + offset, device=dev)
+        t = flat[offset:].view(shape)
+        t.copy_(fill(shape))
+        return t
+
+    def randn(shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def bits(shape):
+        return (torch.rand(shape, generator=g, device=dev) > 0.5).float()
+
+    def edges(shape):
+        return torch.rand(shape, generator=g, device=dev) * 2.0 - 1.0
+
+    e_sta = alloc((n_sta, 4), edges)
+    e_src = alloc((n_src, 4), edges)
+    for cx, cz, m, h, same in ((30, 30, 4, 30, True), (60, 30, 4, 15, False),
+                               (30, 30, 5, 30, False), (8, 8, 4, 8, True)):
+        x = alloc((*lead, n_sta, cx), randn)
+        z = x if same else alloc((*lead, n_sta, cz), randn)
+        agg = alloc((*lead, n_sta, cz), randn)
+        mask = alloc((*lead, n_sta, m), bits)
+        d = cx + cz + 4 + m
+        ws = [torch.randn(s, generator=g, device=dev) * 0.2
+              for s in ((h, d), (h,), (h, d), (h,))]
+        args = (x, z, agg, mask, nbr, w, *ws, torch.tensor([0.25, 0.1], device=dev),
+                e_sta, e_src)
+        n0 = fused_round.launches
+        got = fused_round(*args)
+        torch.cuda.synchronize()
+        assert fused_round.launches == n0 + 1
+        want = fused_round_plain(*args)
+        assert float((got - want).abs().max()) <= 1e-4, (cx, cz, m, h)
+        # the edge columns do reach the output
+        no_edges = fused_round_plain(*args[:11], e_sta * 0, e_src * 0)
+        assert float((want - no_edges).abs().max()) > 1e-3
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("form", ["round1", "round2", "assoc"])
 def test_cuda_fused_round_function_launches_and_matches_autograd(form):
@@ -315,6 +432,52 @@ def test_cuda_fused_round_function_launches_and_matches_autograd(form):
     want = torch.autograd.grad(fused_round_plain(*args), leaves, g_out)
     torch.cuda.synchronize()
     assert fused_round.launches == n0 + 1       # the backward launches nothing
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["round1", "round2", "assoc"])
+def test_cuda_edge_fused_round_function_matches_autograd(form):
+    """Needs the card: ``FusedRound`` in the edge form (E = 4) launches the
+    kernel once and its backward, W1's and W2's edge columns included,
+    matches autograd through the plain twin within 1e-4 × each input's max
+    |grad|; the edge tables take no gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    cx, cz, m, h, same = {"round1": (30, 30, 4, 30, True),
+                          "round2": (60, 30, 4, 15, False),
+                          "assoc": (30, 30, 5, 30, False)}[form]
+    n_sta, k, B, n_src = 374, 8, 2, 20
+    nbr, valid = _knn_table(np.random.default_rng(0), n_sta, k)
+    nbr = torch.from_numpy(nbr).to(dev)
+    w = aggregation_weights(nbr, torch.from_numpy(valid).to(dev))
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).requires_grad_()
+
+    x = randn(B, n_src, n_sta, cx)
+    z = x if same else randn(B, n_src, n_sta, cz)
+    agg = randn(B, n_src, n_sta, cz)
+    mask = (torch.rand((B, n_src, n_sta, m), generator=g, device=dev) > 0.5).float()
+    e_sta = torch.rand((n_sta, 4), generator=g, device=dev) * 2 - 1
+    e_src = torch.rand((n_src, 4), generator=g, device=dev) * 2 - 1
+    d = cx + cz + 4 + m
+    ws = [randn(h, d, scale=0.2), randn(h), randn(h, d, scale=0.2), randn(h)]
+    slopes = torch.tensor([0.25, 0.1], device=dev, requires_grad=True)
+    args = (x, z, agg, mask, nbr, w, *ws, slopes, e_sta, e_src)
+    leaves = [x] + ([] if same else [z]) + [agg, *ws, slopes]
+    g_out = torch.randn((B, n_src, n_sta, 2 * h), generator=g, device=dev)
+    n0 = fused_round.launches
+    out = FusedRound.apply(*args)
+    assert fused_round.launches == n0 + 1 and out.requires_grad
+    got = torch.autograd.grad(out, leaves, g_out)
+    want = torch.autograd.grad(fused_round_plain(*args), leaves, g_out)
+    torch.cuda.synchronize()
+    assert fused_round.launches == n0 + 1
     for a, b in zip(got, want):
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
 

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: no JAX, flax, optax or genie_tpu module is
 imported by any genie_tpu_torch module, nothing needs h5py at import (the
 card's machine has none), entry points do not silently run on the CPU, and
-options the port does not carry yet raise."""
+options the port does not carry raise (the detector and pipeline options
+it now carries are taken)."""
 
 import json
 import os
@@ -56,7 +57,8 @@ def test_port_imports_no_jax_flax_optax_or_genie_tpu():
                 "genie_tpu_torch.synth.generator", "genie_tpu_torch.train.trainer",
                 "genie_tpu_torch.relocation", "genie_tpu_torch.relocation.graphdd",
                 "genie_tpu_torch.native.fmm", "genie_tpu_torch.setup",
-                "genie_tpu_torch.setup.project", "genie_tpu_torch.train.optim"):
+                "genie_tpu_torch.setup.project", "genie_tpu_torch.train.optim",
+                "genie_tpu_torch.graphs.subgraph"):
         assert mod in res["modules"]
 
 
@@ -115,8 +117,11 @@ def test_entry_point_without_device_raises_when_no_cuda(monkeypatch):
                                     "sweep_half", "mag_model", "kmeans_query_grid",
                                     "assoc_mode"])
 def test_unported_options_raise(option):
-    """The options still to port raise. Magnitudes and the k-means query
-    grid are ported: their cases now check that the pipeline takes them."""
+    """An unknown association mode raises. Every other option here is
+    ported: magnitudes, the k-means query grid, the updated model
+    definition, absolute positions, subgraph mode and the bf16 sweep; their
+    cases check that the detector or the pipeline takes them (the options
+    are held against the JAX package in tests/test_torch_port_options.py)."""
     from genie_tpu_torch.infer.pipeline import InferencePipeline
     from genie_tpu_torch.models.detector import Detector
     from genie_tpu_torch.models.magnitude import MagnitudeModel
@@ -124,15 +129,29 @@ def test_unported_options_raise(option):
     cfg = _tiny_cfg()
     ctx = _tiny_ctx(cfg)
     kw = dict(device="cpu")
-    if option in ("use_updated_model_definition", "use_absolute_pos"):
-        with pytest.raises(NotImplementedError):
-            Detector(**{option: True})
+    if option == "use_updated_model_definition":
+        model = Detector(**{option: True})
+        assert model.data_agg.l1_t1_2.in_features == 2 * 30 + 4 + 4
+        assert model.assoc_agg.l2_t2_2.in_features == 3 * 30 + 4 + 5
+        return
+    if option == "use_absolute_pos":
+        model = Detector(**{option: True})
+        assert model.data_agg.init_trns.in_features == 10 + 4
+        assert model.assoc_agg.init_trns.in_features == 21 + 30 + 5
         return
     if option == "use_subgraph":
         cfg.graph.use_subgraph = True
-    elif option == "sweep_half":
-        kw["sweep_half"] = True
-    elif option == "mag_model":
+        pipe = InferencePipeline(Detector(), cfg, ctx, lambda s, x: None, **kw)
+        assert [tuple(m.shape) for m in pipe._pair_masks] == [(12, 6)]
+        return
+    if option == "sweep_half":
+        pipe = InferencePipeline(Detector(), cfg, ctx, lambda s, x: None,
+                                 sweep_half=True, **kw)
+        a = pipe.model.data_agg.init_trns.weight
+        b = pipe._model_half.data_agg.init_trns.weight
+        assert b.dtype == torch.float32 and torch.equal(b, a.bfloat16().float())
+        return
+    if option == "mag_model":
         kw["mag_model"] = {"model": MagnitudeModel(n_sta=6, n_grid=2),
                            "grid_cart": np.zeros((2, 3), np.float32),
                            "dist_model": None}
