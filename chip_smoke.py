@@ -89,7 +89,7 @@ Phases (any failure exits non-zero):
      which differs from the card's by up to ~5e-5 s, is compared too and
      printed as the witness of that difference); then ``train_graphdd``
      for 3000 steps (a 50-step probe cuts them to the largest multiple of
-     500, at least 1000, that fits 150 s, and prints the cut),
+     500, at least 1000, that fits 100 s, and prints the cut),
      ``relocate`` of every graph averaged per source: the median 3-D error
      of the relocated sources must fall under 0.7 × their initial median.
      Seconds per step, peak memory and one profiled step;
@@ -131,6 +131,31 @@ Phases (any failure exits non-zero):
      are four steps old); the bf16-weight sweep with run6's weights against
      the f32 sweep (≤ 0.05), card vs CPU (≤ 1e-3), and a request with it
      that must locate the six planted events within 5 km and 0.5 s.
+ 13. ``[extras]`` (run after phase 7; ``extras_phase``): what the JAX
+     pipeline never calls, on the production domain with its corrected
+     PINN and request. ``locate_source_pso`` (popsize 128, 120
+     iterations, 64 depths, the stations' hull) and ``locate_source`` (DE,
+     popsize 128, 150 iterations) on each planted event's picks at its 24
+     nearest stations: within 5 km and 0.5 s; ``location_uncertainty`` at
+     each DE solution card vs CPU (1e-3 of the largest entry, symmetric);
+     ``LegacyTravelTimes`` at flax-default weights on 4096 sources × the
+     stations, full and relative, card vs CPU (times 1e-4 × max |t|, mask
+     1e-5); ``knn_tiled`` of the 10,000 query nodes against themselves (k
+     10, tile 8192) equal to ``knn`` wherever the exact distances order
+     clearly (gaps over the f32 rounding bound of the distance form, about
+     1e-3 of a neighbour's d² at 2e5 m) and within that bound everywhere;
+     ``spmm`` over one product graph's 1.50 M
+     station edges (C 30, weighted; sum, mean, max) card vs CPU within
+     1e-5 relative, forward and backward; ``natural_neighbor_interp`` of a
+     smooth field on the 500 correction nodes to 4096 queries, card vs CPU
+     on 512 (at most 1 % differ by more than 1e-4 × the range); the
+     production request replayed through ``process_from_sweep(trace=…)``
+     (every planted event covered at all seven stages, the events of the
+     call without ``trace``, launches > 0); and ``nc_optimize_data.py``'s
+     loop at its defaults (``--t-synth`` 10,800 s, 40 calls, 15 random
+     starts) against the statistics of two timelines at run6's ``synth:``
+     values, a stand-in for the BSSA pick days (not in the repo): every
+     residual finite.
 
 It prints per-stage times, event counts, launches, peak memory, the card's
 name and power limit, a JSON line describing every kernel, and as its last
@@ -651,7 +676,7 @@ def build_production(cfg, ctx, pinn, model, x_query, dev="cuda"):
 def production_request(pipe, cfg, ctx, trv, mag, seed: int):
     """Two timed requests with amplitudes and a profiled third; every
     planted event must come back located and with its magnitude. Returns
-    the fused-round launches of the second request."""
+    the fused-round launches of the second request and the picks."""
     import torch
 
     from genie_tpu_torch.ops.fused_round import fused_round
@@ -691,7 +716,7 @@ def production_request(pipe, cfg, ctx, trv, mag, seed: int):
           f"wall {wall:.3f} s, max_memory_allocated {peak} B ({peak / 2**30:.2f} GiB)")
     profile_request(pipe, picks, pick_amp=amp, tag="profile production",
                     ranges=("trv", "pinn"))
-    return launches
+    return launches, picks
 
 
 # -- phase 7 ---------------------------------------------------------------
@@ -1371,7 +1396,7 @@ def calibrate_phase(ctx, pinn, seed: int, dev="cuda"):
 
 # -- phase 10 --------------------------------------------------------------
 def relocate_phase(ctx, trv_h, pinn, seed: int, dev="cuda", full_steps: int = 3000,
-                   budget_s: float = 150.0):
+                   budget_s: float = 100.0):
     """Phase 10, ``[relocate]``: GraphDD at the sizes of run6's relocation
     artifact: the loss and gradients of one graph card vs CPU at
     flax-default weights, ``train_graphdd`` (cut to the largest multiple of
@@ -1811,6 +1836,288 @@ def project_phase(pinn, seed: int, dev="cuda", n_sta: int = 374, n_fmm: int = 8,
     return summary
 
 
+# -- phase 13 --------------------------------------------------------------
+def event_picks(picks, trv, ctx, j: int, n_sta: int = 24, max_dist: float = 150e3):
+    """The request's picks of planted event ``j`` at its ``n_sta`` nearest
+    stations within ``max_dist`` (P and S; at most ``2 · n_sta``): at each
+    (station, phase) the pick nearest the event's predicted arrival, if
+    within 1 s. Returns (tpick, ipick, phase (L, 1), mask) as numpy."""
+    import torch
+
+    pick_t, pick_sta, pick_ph, ev_pos, ev_t = picks[:5]
+    sta = ctx.sta_cart.cpu().numpy()
+    with torch.no_grad():
+        tt = trv.from_cart(ctx.sta_cart, torch.as_tensor(
+            ev_pos[j:j + 1], dtype=torch.float32, device=ctx.sta_cart.device))[0]
+    tt = tt.cpu().numpy()
+    d = np.linalg.norm(sta[:, :2] - ev_pos[j, None, :2], axis=1)
+    near = [i for i in np.argsort(d)[:n_sta] if d[i] < max_dist]
+    tp, ip, ph = [], [], []
+    for i in near:
+        for p in (0, 1):
+            cand = np.where((pick_sta == i) & (pick_ph == p))[0]
+            if len(cand) == 0:
+                continue
+            k = cand[np.argmin(np.abs(pick_t[cand] - ev_t[j] - tt[i, p]))]
+            if abs(pick_t[k] - ev_t[j] - tt[i, p]) < 1.0:
+                tp.append(pick_t[k]), ip.append(i), ph.append(p)
+    return (np.asarray(tp, np.float32), np.asarray(ip, np.int32),
+            np.asarray(ph, np.float32)[:, None], np.ones(len(tp), bool))
+
+
+def extras_phase(pipe, cfg, ctx, trv, picks, seed: int, card: str, dev="cuda",
+                 n_calls: int = 40, n_random_starts: int = 15, t_synth: float = 10800.0,
+                 n_legacy: int = 4096, chunk: int = 512, n_check: int = 512):
+    """Phase 13, ``[extras]``: what the JAX pipeline never calls, on the
+    production domain (``pipe``, ``ctx``, the corrected PINN ``trv`` and
+    the request ``picks`` of phase 6). Returns the fused-round launches of
+    the audited request."""
+    import torch
+
+    from genie_tpu_torch.calibration.corrections import TravelTimeCorrection
+    from genie_tpu_torch.infer.locate import (locate_source, locate_source_pso,
+                                              location_uncertainty)
+    from genie_tpu_torch.models.init import init_legacy_travel_times
+    from genie_tpu_torch.models.travel_time import LegacyTravelTimes
+    from genie_tpu_torch.ops.fused_round import fused_round
+    from genie_tpu_torch.ops.interp import natural_neighbor_interp
+    from genie_tpu_torch.ops.knn import knn, knn_tiled
+    from genie_tpu_torch.ops.segment import spmm
+    from genie_tpu_torch.params import load_pinn
+    from genie_tpu_torch.train.bayes_opt import PARAM_SPACE, gp_minimize
+    from genie_tpu_torch.workflow import optimize_data_objective, synthetic_pick_statistics
+
+    t_phase = time.time()
+    rng = np.random.default_rng(seed + 13)
+    print(f"[extras] card: {card}", flush=True)
+    ev_pos, ev_t = picks[3], picks[4]
+    n_sta = ctx.sta_cart.shape[0]
+    lo = torch.cat((ctx.offset_cart, torch.tensor([-30.0], device=dev)))
+    hi = torch.cat((ctx.offset_cart + ctx.scale_cart, torch.tensor([30.0], device=dev)))
+
+    def located(tag, j, pos, t0, t_ref, secs):
+        err = float(np.linalg.norm(pos.cpu().numpy() - ev_pos[j]))
+        dt = float(t0) + t_ref - ev_t[j]
+        print(f"[extras] {tag} event {j}: {err / 1e3:.3f} km, dt {dt:+.3f} s, "
+              f"{secs:.3f} s", flush=True)
+        if not (err < 5e3 and abs(dt) < 0.5):
+            fail(f"[extras] {tag}: planted event {j} located {err / 1e3:.2f} km and "
+                 f"{dt:+.3f} s off (gates 5 km, 0.5 s)")
+
+    # pso and locate: each planted event from its own picks, times relative to
+    # a reference within ±3 s of the origin, as a detection would give
+    events = []
+    for j in range(len(ev_t)):
+        tp, ip, ph, mk = event_picks(picks, trv, ctx, j)
+        t_ref = float(ev_t[j] + rng.uniform(-3.0, 3.0))
+        events.append((tp - t_ref, ip, ph, mk, t_ref))
+    hull = ctx.sta_cart.cpu().numpy()
+    for tag in ("pso", "locate"):
+        secs = []
+        sols = []
+        for j, (tp, ip, ph, mk, t_ref) in enumerate(events):
+            gen = torch.Generator(device=dev).manual_seed(seed + 100 + j)
+            if tag == "pso":
+                run = lambda: locate_source_pso(gen, trv.from_cart, ctx.sta_cart, tp, ip,
+                                                ph, mk, lo, hi, hull_points=hull,
+                                                device=dev)
+            else:
+                run = lambda: locate_source(gen, trv.from_cart, ctx.sta_cart, tp, ip, ph,
+                                            mk, lo, hi, device=dev)
+            with torch.no_grad():
+                (pos, t0, cost), sec, _ = _timed(run)
+            located(tag, j, pos, t0, t_ref, sec)
+            secs.append(sec)
+            sols.append((pos, t0))
+        print(f"[extras] {tag}: {len(events)} events, picks per event "
+              f"{[len(e[0]) for e in events]}, s per event {np.round(secs, 3).tolist()}",
+              flush=True)
+
+    # uncertainty: the covariance at each DE solution (``sols`` of the last
+    # loop), card vs CPU
+    z = np.load(CORRECTIONS)
+    trv_cpu = TravelTimeCorrection(load_pinn(PINN, device="cpu").from_cart, z["grid_cart"],
+                                   z["coefs"][:, :n_sta])
+    sta_cpu = ctx.sta_cart.cpu()
+    worst = 0.0
+    for j, ((tp, ip, ph, mk, _), (pos, t0)) in enumerate(zip(events, sols)):
+        cov, sec, _ = _timed(lambda: location_uncertainty(
+            trv.from_cart, ctx.sta_cart, pos, t0, tp, ip, ph, mk, device=dev))
+        cov = cov.cpu().numpy()
+        want = location_uncertainty(trv_cpu.from_cart, sta_cpu, pos.cpu(), t0.cpu(), tp,
+                                    ip, ph, mk, device="cpu").numpy()
+        rel = float(np.abs(cov - want).max() / np.abs(want).max())
+        worst = max(worst, rel)
+        sym = float(np.abs(cov - cov.T).max() / np.abs(cov).max())
+        print(f"[extras] uncertainty event {j}: sigma xyz/t "
+              f"{np.sqrt(np.maximum(np.diag(cov), 0)).round(3).tolist()}, card vs CPU "
+              f"{rel:.2e} of the largest entry, asymmetry {sym:.1e}, {sec * 1e3:.1f} ms",
+              flush=True)
+        if not (np.isfinite(cov).all() and rel <= 1e-3 and sym <= 1e-5):
+            fail(f"[extras] uncertainty of event {j}: card vs CPU {rel} (gate 1e-3), "
+                 f"asymmetry {sym}")
+
+    # legacy_tt: LegacyTravelTimes at its width, flax-default init
+    model_cpu = init_legacy_travel_times(LegacyTravelTimes(device="cpu"),
+                                         torch.Generator().manual_seed(seed))
+    model = copy.deepcopy(model_cpu).to(dev)
+    flat = ctx.grids_cart.reshape(-1, 3).cpu().numpy()
+    src = torch.as_tensor(rng.uniform(flat.min(0), flat.max(0), (n_legacy, 3)),
+                          dtype=torch.float32)
+    src_d = src.to(dev)
+    for relative in (False, True):
+        with torch.no_grad():
+            t_d, m_d = model(ctx.sta_cart, src_d, relative=relative)
+            t_c, m_c = model_cpu(sta_cpu, src, relative=relative)
+            ms = cuda_time_ms(lambda: model(ctx.sta_cart, src_d, relative=relative),
+                              reps=5, warmup=1)
+        et = float((t_d.cpu() - t_c).abs().max() / t_c.abs().max())
+        em = float((m_d.cpu() - m_c).abs().max())
+        print(f"[extras] legacy_tt relative={relative}: {n_legacy} x {n_sta} pairs, "
+              f"max |dt| {et:.2e} x max |t|, max |dmask| {em:.2e}, {ms:.3f} ms per call",
+              flush=True)
+        if not (et <= 1e-4 and em <= 1e-5):
+            fail(f"[extras] legacy_tt relative={relative}: card vs CPU {et} / {em}")
+        del t_d, m_d, t_c, m_c
+
+    # knn_tiled: the query grid against itself, one full tile and a ragged one
+    xq = pipe.x_query
+    k = 10
+    ti, tv = knn_tiled(xq, xq, k, tile=8192)
+    ki, kv = knn(xq, xq, k)
+    ms_t = cuda_time_ms(lambda: knn_tiled(xq, xq, k, tile=8192), reps=5, warmup=1)
+    ms_k = cuda_time_ms(lambda: knn(xq, xq, k), reps=5, warmup=1)
+    # exact distances (float64) decide which rows have a clear order: a gap
+    # must exceed what the rounding of the f32 |a|²+|b|²-2ab form both
+    # searches use can move two distances apart, 8·eps·(|q|² + max |c|²),
+    # ~1e-3 of a neighbour's d² at 2e5 m
+    x64 = xq.double()
+    d_all = torch.cdist(x64, x64).square()
+    d_sorted = torch.topk(d_all, k + 1, dim=1, largest=False).values
+    tol = 8 * torch.finfo(torch.float32).eps * (
+        (x64 ** 2).sum(1) + (x64 ** 2).sum(1).max())[:, None]
+    gaps = d_sorted[:, 1:] - d_sorted[:, :-1]
+    clear = (gaps > tol).all(dim=1)              # every order in the row is clear
+    clear_k = gaps[:, k - 1] > tol[:, 0]         # the k-th and (k+1)-th differ
+    pos_eq = (ti == ki).all(dim=1)
+    set_eq = (torch.sort(ti, dim=1).values == torch.sort(ki, dim=1).values).all(dim=1)
+    d_gap = (torch.gather(d_all, 1, ti.long()) - torch.gather(d_all, 1, ki.long())).abs()
+    del d_all
+    bad = (int((clear & ~pos_eq).sum()) + int((clear_k & ~set_eq).sum())
+           + int((d_gap > tol).any(dim=1).sum()))
+    print(f"[extras] knn_tiled: {xq.shape[0]} x {xq.shape[0]}, k {k}, tile 8192: "
+          f"{int(pos_eq.sum())} rows equal to knn, {int(clear.sum())} with a clear order, "
+          f"{int(clear_k.sum())} with a clear k-th gap; max |d² tiled - d² knn| "
+          f"{float((d_gap / tol).max()):.2f} x the rounding bound; {ms_t:.3f} ms "
+          f"(knn {ms_k:.3f} ms)", flush=True)
+    if bad or not bool(tv.all()) or not torch.equal(tv, kv):
+        fail(f"[extras] knn_tiled differs from knn on {bad} rows with clear distances")
+
+    # spmm: the station edges of one product graph, 500 sources x the stations
+    sta_nbr = pipe.sta_nbr.long()
+    n_src, kk, c = ctx.grids_cart.shape[1], sta_nbr.shape[1], 30
+    node = torch.arange(n_src * n_sta, device=dev).view(n_src, n_sta)
+    e_dst = node[:, :, None].expand(n_src, n_sta, kk).reshape(-1)
+    e_src = (node[:, :1, None] + sta_nbr[None]).reshape(-1)
+    gen = torch.Generator(device=dev).manual_seed(seed + 14)
+    x = torch.randn((n_src * n_sta, c), generator=gen, device=dev)
+    w = torch.rand(e_src.shape, generator=gen, device=dev)
+    r = torch.randn((n_src * n_sta, c), generator=gen, device=dev)
+    for aggr in ("sum", "mean", "max"):
+        res = {}
+        for tag, args in (("cuda", (e_src, e_dst, x, w, r)),
+                          ("cpu", tuple(a.cpu() for a in (e_src, e_dst, x, w, r)))):
+            xs = args[2].clone().requires_grad_(True)
+            out = spmm(args[0], args[1], xs, n_src * n_sta, edge_weight=args[3], aggr=aggr)
+            (out * args[4]).sum().backward()
+            res[tag] = (out.detach().cpu(), xs.grad.cpu())
+
+        def fwd_bwd():
+            xs = x.clone().requires_grad_(True)
+            out = spmm(e_src, e_dst, xs, n_src * n_sta, edge_weight=w, aggr=aggr)
+            (out * r).sum().backward()
+
+        ms = cuda_time_ms(fwd_bwd, reps=5, warmup=1)
+        errs = [float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(res["cuda"], res["cpu"])]
+        print(f"[extras] spmm {aggr}: {e_src.shape[0]} edges, C {c}, weighted; card vs CPU "
+              f"out {errs[0]:.2e}, grad {errs[1]:.2e} (relative to max); forward+backward "
+              f"{ms:.3f} ms, {e_src.shape[0] / ms * 1e3:.4g} edges/s", flush=True)
+        if not max(errs) <= 1e-5:
+            fail(f"[extras] spmm {aggr}: card vs CPU {errs} > 1e-5")
+
+    # interp: a smooth field on the correction grid's 500 nodes
+    nodes = z["grid_cart"].astype(np.float32)
+    field = (np.sin(nodes[:, 0] / 50e3) + np.cos(nodes[:, 1] / 70e3)
+             + nodes[:, 2] / 20e3).astype(np.float32)
+    xqi = rng.uniform(nodes.min(0), nodes.max(0), (4096, 3)).astype(np.float32)
+    (got, sec, peak) = _timed(lambda: natural_neighbor_interp(
+        nodes, field, xqi, n_res=11, query_chunk=chunk, device=dev))
+    want = natural_neighbor_interp(nodes, field, xqi[:n_check], n_res=11, query_chunk=chunk,
+                                   device="cpu")
+    diff = (got[:n_check].cpu() - want).abs()
+    off = diff > 1e-4 * float(field.max() - field.min())
+    print(f"[extras] interp: {len(nodes)} nodes -> {len(xqi)} queries (n_res 11, chunk "
+          f"{chunk}) {sec * 1e3:.1f} ms, peak {peak / 2**30:.2f} GiB; card vs CPU on "
+          f"{n_check}: {int(off.sum())} differ by more than 1e-4 x the range (max "
+          f"{float(diff.max()):.2e})", flush=True)
+    if not (torch.isfinite(got).all() and float(off.float().mean()) <= 0.01):
+        fail(f"[extras] interp: {int(off.sum())} of {n_check} queries differ card vs CPU")
+
+    # trace: the production request replayed through the audit
+    pick_t, pick_sta, pick_ph = picks[:3]
+    amp = picks[5]
+    times_s, series = pipe.detection_sweep(pick_t, pick_sta, pick_ph, 0.0, 600.0)
+    plain = pipe.process_from_sweep(times_s, series, pick_t, pick_sta, pick_ph, pick_amp=amp)
+    planted = np.concatenate((ev_pos, ev_t[:, None]), axis=1)
+    fused_round.launches = 0
+    (audited, sec, _) = _timed(lambda: pipe.process_from_sweep(
+        times_s, series, pick_t, pick_sta, pick_ph, pick_amp=amp, trace=planted))
+    launches = fused_round.launches
+    stages = ["peaks", "cluster", "refine", "associate", "eligible", "locate+qc", "dedup"]
+    missed = {k: v for k, v in pipe.ledger.items() if v}
+    same = len(plain) == len(audited) and all(
+        np.array_equal(a.picks, b.picks) and np.array_equal(a.pos_cart, b.pos_cart)
+        and a.time == b.time for a, b in zip(plain, audited))
+    print(f"[extras] trace: {len(audited)} events, {sec:.2f} s, {launches} fused_round "
+          f"launches; stages audited {list(pipe.ledger)}; missing {missed}; events equal to "
+          f"the call without trace: {same}", flush=True)
+    if list(pipe.ledger) != stages or missed or not same or launches <= 0:
+        fail("[extras] trace: the audit lost a planted event, changed the events or "
+             "launched no kernel")
+
+    # optimize: nc_optimize_data.py's loop; targets from run6's synth values
+    cfg_o = run6_train_config()
+    cfg_o.synth.T = t_synth
+    gen = torch.Generator(device=dev).manual_seed(seed + 15)
+    targets = [synthetic_pick_statistics(cfg_o, ctx, trv.from_cart, gen) for _ in range(2)]
+    objective = optimize_data_objective(cfg_o, ctx, trv.from_cart, targets, gen)
+    cut = ("no cut" if (n_calls, n_random_starts) == (40, 15) else
+           f"reduced: n_calls 40 -> {n_calls}, n_random_starts 15 -> {n_random_starts}")
+    print(f"[extras] optimize: {n_calls} calls, {n_random_starts} random starts ({cut}); "
+          f"--t-synth {t_synth:.0f} s; targets: two timelines at run6's synth values",
+          flush=True)
+    walls = []
+
+    def cb(i, x_, y_):
+        walls.append(time.time())
+        print(f"[extras] optimize call {i + 1}/{n_calls}: resid {y_:.4f}", flush=True)
+
+    t0 = time.time()
+    x_best, y_best, X, Y = gp_minimize(objective, [(p[1], p[2]) for p in PARAM_SPACE],
+                                       n_calls=n_calls, n_random_starts=n_random_starts,
+                                       callback=cb)
+    per_call = np.diff([t0] + walls)
+    print("[extras] optimize " + json.dumps({
+        "residual": y_best, "best_random_start": float(min(Y[:n_random_starts])),
+        "s_per_call": per_call.round(3).tolist(),
+        "params": {p[0]: float(v) for p, v in zip(PARAM_SPACE, x_best)}}), flush=True)
+    if not (np.isfinite(Y).all() and y_best <= min(Y[:n_random_starts])):
+        fail(f"[extras] optimize: residuals {Y.tolist()}")
+    print(f"[extras] phase {time.time() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1896,17 +2203,18 @@ def main():
     del pipe
     torch.cuda.empty_cache()
     pipe_p, ctx_p, trv_p, mag = build_production(cfg, ctx, pinn, model, x_query)
-    launches_p = production_request(pipe_p, cfg, ctx_p, trv_p, mag, args.seed)
+    launches_p, picks_p = production_request(pipe_p, cfg, ctx_p, trv_p, mag, args.seed)
     locate_at_limits(ctx_p, trv_p, pinn, args.seed)
-    del pipe_p, ctx_p, trv_p, mag
-    torch.cuda.empty_cache()
-
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
+    launches_x = extras_phase(pipe_p, cfg, ctx_p, trv_p, picks_p, args.seed, card)
+    del pipe_p, ctx_p, trv_p, mag
+    torch.cuda.empty_cache()
+
     bwd_records = check_backward(sta_nbr, sta_w, args.seed)
     launches_t = train_phase(run6_train_config(), ctx, pinn, args.seed, card)
     torch.cuda.empty_cache()
@@ -1933,7 +2241,7 @@ def main():
         "launches": launches_t,
         "launches_by_path": {"homogeneous": launches, "production": launches_p,
                              "train": launches_t, "calibrate_and_relocate": launches_cr,
-                             "options": launches_o},
+                             "options": launches_o, "extras_trace": launches_x},
         "max_abs_err": max(r["max_abs_err"] for r in records + edge_records),
         "max_abs_diff": max(r["max_abs_err"] for r in records + edge_records),
         "ms": r1["ms"], "plain_ms": r1["plain_ms"], "bound_ms": r1["bound_ms"],

@@ -31,8 +31,9 @@ bf16 sweep: the JAX forward there casts the weights and features to bf16,
 but the f32 pick mask promotes every activation back to f32, so what it
 computes is the f32 forward on bf16-rounded weights and features, cast to
 f16 at the end; the port computes exactly that (the f32 kernel launches),
-for the sweep only. The HDF5 catalog is written by
-``genie_tpu_torch.io.save_catalog`` (``workflow.process_day``).
+for the sweep only. ``process_from_sweep(trace=…)`` audits target events
+through stages 2-7 as the JAX package's ``_ledger`` does. The HDF5 catalog
+is written by ``genie_tpu_torch.io.save_catalog`` (``workflow.process_day``).
 """
 
 from __future__ import annotations
@@ -803,15 +804,46 @@ class InferencePipeline:
         self.stage_seconds = {"sweep": t_sweep, **self.stage_seconds}
         return events
 
+    def _ledger(self, stage, arr4, trace, sig_x=25e3, sig_t=15.0):
+        """Stage-by-stage audit of target events: for each (x, y, z, t)
+        target, whether any candidate of this stage lies within the
+        matcher's (sig_x, sig_t) ball, so a lost detection names the stage
+        that dropped it. Prints one ``[ledger]`` line and keeps the missing
+        targets' indices in ``self.ledger[stage]``."""
+        if trace is None:
+            return
+        arr4 = np.asarray(arr4).reshape(-1, 4)
+        miss = []
+        for j, tg in enumerate(trace):
+            if len(arr4):
+                d = np.linalg.norm(arr4[:, :2] - tg[None, :2], axis=1)
+                dt = np.abs(arr4[:, 3] - tg[3])
+                hit = bool(np.any((d < sig_x) & (dt < sig_t)))
+            else:
+                hit = False
+            if not hit:
+                miss.append(j)
+        self.ledger[stage] = miss
+        print(f"[ledger] {stage:10s}: {len(trace) - len(miss)}/{len(trace)} "
+              f"targets covered; missing {miss}", flush=True)
+
     def process_from_sweep(self, times_s, series, pick_t, pick_sta, pick_phase,
-                           pick_amp=None, thresh=None):
-        """Stages 2-8 given a (possibly cached) sweep series."""
+                           pick_amp=None, thresh=None, trace=None):
+        """Stages 2-8 given a (possibly cached) sweep series. ``trace``: an
+        optional (n, 4) array of Cartesian + time target events (e.g. the
+        day's USGS catalog) audited through every stage by :meth:`_ledger`;
+        it changes nothing else."""
         cfg = self.cfg
         _check_assoc_mode(cfg.process.assoc_mode)
         self.stage_seconds = {}
+        self.ledger = {}
+        if trace is not None:
+            trace = np.asarray(trace).reshape(-1, 4)
         t_st = time.time()
         cands, vals = self.extract_candidates(times_s, series, thresh=thresh)
+        self._ledger("peaks", cands, trace)
         srcs, svals = self.cluster_candidates(cands, vals)
+        self._ledger("cluster", srcs, trace)
         self.stage_seconds["candidates"] = time.time() - t_st
         if self.verbose:
             print(f"[pipeline] {len(cands)} peaks -> {len(srcs)} clustered",
@@ -820,6 +852,7 @@ class InferencePipeline:
             return []
         t_st = time.time()
         srcs, svals = self.refine_sources(pick_t, pick_sta, pick_phase, srcs, svals)
+        self._ledger("refine", srcs, trace)
         self.stage_seconds["refine"] = time.time() - t_st
         t_st = time.time()
         events = []
@@ -841,9 +874,23 @@ class InferencePipeline:
                     vals=svals[sub]))
                 start += len(sub)
         self.stage_seconds["associate"] = time.time() - t_st
+        if trace is not None:
+            ev4 = np.array([[*ev.pos_cart, ev.time] for ev in events])
+            self._ledger("associate", ev4, trace)
+            npick = np.array([len(ev.picks) for ev in events], int)
+            nsta = np.array([len(np.unique(pick_sta[ev.picks])) for ev in events], int)
+            elig = ((npick >= cfg.process.min_required_picks)
+                    & (nsta >= cfg.process.min_required_sta))
+            self._ledger("eligible", ev4[elig] if elig.any() else ev4[:0], trace)
         t_st = time.time()
         located = self.locate(events, pick_t, pick_sta)
+        if trace is not None:
+            self._ledger("locate+qc", np.array([[*ev.pos_cart, ev.time]
+                                                for ev in located]), trace)
         deduped = self.dedup(located)
+        if trace is not None:
+            self._ledger("dedup", np.array([[*ev.pos_cart, ev.time]
+                                            for ev in deduped]), trace)
         self.stage_seconds["locate"] = time.time() - t_st
         t_st = time.time()
         out = self.assign_magnitudes(deduped, pick_sta, pick_amp)

@@ -2,8 +2,9 @@
 
 Twins of ``model.init`` in ``init_train_state``
 (``genie_tpu/train/trainer.py:337-370``), in ``train_graphdd``
-(``genie_tpu/relocation/graphdd.py:669``) and in ``train_pinn``
-(``genie_tpu/models/travel_time_pinn.py:226``): flax ``Dense`` defaults, not
+(``genie_tpu/relocation/graphdd.py:669``), in ``train_pinn``
+(``genie_tpu/models/travel_time_pinn.py:226``) and of ``LegacyTravelTimes``'s
+``m.init``: flax ``Dense`` defaults, not
 ``nn.Linear``'s own initialisation, so a port run from scratch starts where
 a JAX run does (in distribution; the draws come from a ``torch.Generator``).
 """
@@ -34,6 +35,13 @@ def init_graphdd(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Initialise a ``relocation.graphdd.GNNLocation`` in place with flax's
     defaults, as :func:`init_detector`: ``lecun_normal`` kernels, zero
     biases, PReLU slopes 0.25."""
+    return _flax_defaults(model, generator)
+
+
+def init_legacy_travel_times(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Initialise a ``models.travel_time.LegacyTravelTimes`` in place with
+    flax's defaults (``m.init`` in the JAX package): ``lecun_normal``
+    kernels, zero biases."""
     return _flax_defaults(model, generator)
 
 

@@ -1,19 +1,23 @@
 """Travel-time surrogates mapping (stations, sources) to P/S arrival times.
 
-Port of ``genie_tpu/models/travel_time.py:37-101``. ``from_cart(sta_cart,
+Port of ``genie_tpu/models/travel_time.py:37-158``. ``from_cart(sta_cart,
 src_cart)`` returns ``(..., n_src, n_sta, 2)`` seconds; leading batch
 dimensions of ``src_cart`` carry through. Both surrogates are plain torch
 ops, differentiable (``torch.func.jacfwd`` goes through them for the
 location covariance) and device-agnostic. The physics-informed network
 (``models/travel_time_pinn.py``) and ``TravelTimeCorrection``
-(``calibration/corrections.py``) keep the same contract; the legacy MLP is
-not ported yet.
+(``calibration/corrections.py``) keep the same contract. The legacy MLP
+surrogate :class:`LegacyTravelTimes` returns times and a validity mask; its
+parameter names are those of the flax tree (``fc1.Dense_0`` …), so
+``params.load_into`` and ``params.to_flax`` carry its weights across.
 """
 
 from __future__ import annotations
 
 import torch
+from torch import nn
 
+from genie_tpu_torch.device import resolve_device
 from genie_tpu_torch.geometry import Projection
 
 
@@ -87,3 +91,64 @@ class GridTravelTime:
                if sta_indices is None
                else torch.as_tensor(sta_indices, device=src_lla.device).long())
         return self._interp(src_lla, idx, paired=True)
+
+
+class _ReluMLP(nn.Module):
+    """3×80 ReLU MLP head (the reference's fc1..fc4 Sequentials)."""
+
+    def __init__(self, n_in: int, n_out: int = 1, n_hidden: int = 80, device=None):
+        super().__init__()
+        widths = (n_in, n_hidden, n_hidden, n_hidden, n_out)
+        for i in range(4):
+            setattr(self, f"Dense_{i}", nn.Linear(widths[i], widths[i + 1], device=device))
+
+    def forward(self, x):
+        for i in range(3):
+            x = torch.relu(getattr(self, f"Dense_{i}")(x))
+        return self.Dense_3(x)
+
+
+class LegacyTravelTimes(nn.Module):
+    """The legacy two-branch travel-time surrogate with validity-mask heads
+    (the reference's ``TravelTimes``, module.py:1190-1321): time =
+    ``trav_val·(fc1(relative offset) + fc2(absolute positions))``, validity
+    = ``sigmoid(fc3(relative) + fc4(absolute))``, inputs divided by
+    ``scale_val``. ``relative=True`` uses fc1 and fc3 only; ``train=True``
+    drops the absolute branch of each (source, station) pair with
+    probability ``drop_p``, from a keep mask drawn from ``generator``.
+    Inputs are Cartesian; outputs (n_src, n_sta, n_phases). Built on
+    ``device`` (default ``cuda``) with ``nn.Linear``'s own initialisation;
+    ``models.init.init_legacy_travel_times`` gives flax's."""
+
+    def __init__(self, n_phases: int = 2, scale_val: float = 1e6,
+                 trav_val: float = 200.0, device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        self.scale_val, self.trav_val = scale_val, trav_val
+        self.fc1 = _ReluMLP(3, n_phases, device=dev)
+        self.fc2 = _ReluMLP(6, n_phases, device=dev)
+        self.fc3 = _ReluMLP(3, n_phases, device=dev)
+        self.fc4 = _ReluMLP(6, n_phases, device=dev)
+
+    def forward(self, sta_cart, src_cart, train: bool = False, relative: bool = False,
+                drop_p: float = 0.5, generator=None):
+        sta = sta_cart / self.scale_val
+        src = src_cart / self.scale_val
+        rel = sta[None, :, :] - src[:, None, :]                 # (S, n_sta, 3)
+        t = self.fc1(rel)
+        m = self.fc3(rel)
+        if not relative:
+            absq = torch.cat((sta[None].expand(rel.shape), src[:, None].expand(rel.shape)),
+                             dim=-1)
+            t_abs = self.fc2(absq)
+            m_abs = self.fc4(absq)
+            if train:
+                if generator is None:
+                    raise ValueError("train=True draws its keep mask: pass a generator")
+                keep = (torch.rand(rel.shape[:2] + (1,), generator=generator,
+                                   device=rel.device) > drop_p).to(t.dtype)
+                t_abs = t_abs * keep
+                m_abs = m_abs * keep
+            t = t + t_abs
+            m = m + m_abs
+        return self.trav_val * t, torch.sigmoid(m)

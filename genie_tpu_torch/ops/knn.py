@@ -1,10 +1,13 @@
 """k-nearest-neighbour search with static shapes.
 
-Port of ``genie_tpu/ops/knn.py:25-72``: brute-force masked squared distances
-(``|a|²+|b|²-2ab``, one matmul for the cross term) and ``torch.topk``.
-Masked context points get +inf distance and are never selected while a
-valid one remains. ``torch.topk`` and ``jax.lax.top_k`` may order equal
-distances differently, so tables agree with the JAX package as sets.
+Port of ``genie_tpu/ops/knn.py:25-113``: brute-force masked squared
+distances (``|a|²+|b|²-2ab``, one matmul for the cross term) and
+``torch.topk``. Masked context points get +inf distance and are never
+selected while a valid one remains. ``torch.topk`` and ``jax.lax.top_k`` may
+order equal distances differently, so :func:`knn` tables agree with the JAX
+package as sets; :func:`knn_tiled`, which streams context tiles through a
+running top-k for large context sets, takes its top-k by a stable sort and
+so orders ties as ``lax.top_k`` does (lower index first).
 """
 
 from __future__ import annotations
@@ -47,4 +50,38 @@ def knn_graph(x, k: int, mask=None):
     if mask is not None:
         valid = valid & mask[:, None]
     idx = torch.where(valid, idx, torch.arange(n, device=x.device)[:, None])
+    return idx.to(torch.int32), valid
+
+
+def _top_k_stable(scores, k: int):
+    """``lax.top_k``: the ``k`` largest scores per row, ties by lower index."""
+    s, i = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return s[..., :k], i[..., :k]
+
+
+def knn_tiled(x_context, x_query, k: int, context_mask=None, tile: int = 8192):
+    """:func:`knn` over context tiles of ``tile`` rows with a running top-k,
+    so peak memory is O(n_q · (tile + 2k)). Returns ``(idx, valid)`` of
+    shape ``(n_q, k)``; an invalid slot repeats the row's first index."""
+    n_c = x_context.shape[0]
+    n_q = x_query.shape[0]
+    dev = x_query.device
+    best_s = torch.full((n_q, k), float("-inf"), device=dev)
+    best_i = torch.zeros((n_q, k), dtype=torch.long, device=dev)
+    for t0 in range(0, n_c, tile):
+        xc = x_context[t0:t0 + tile]
+        n_t = xc.shape[0]
+        m = torch.ones(n_t, dtype=torch.bool, device=dev)
+        if context_mask is not None:
+            m = context_mask[t0:t0 + tile].bool()
+        if n_t < tile:      # the padded tail of the last tile: masked zeros
+            xc = torch.cat((xc, xc.new_zeros((tile - n_t, xc.shape[1]))))
+            m = torch.cat((m, m.new_zeros(tile - n_t)))
+        d = pairwise_sq_dist(x_query, xc)
+        d = torch.where(m[None, :], d, torch.full_like(d, float("inf")))
+        s, i = _top_k_stable(-d, min(k, tile))
+        best_s, sel = _top_k_stable(torch.cat((best_s, s), dim=1), k)
+        best_i = torch.gather(torch.cat((best_i, i + t0), dim=1), 1, sel)
+    valid = torch.isfinite(best_s)
+    idx = torch.where(valid, best_i, best_i[:, :1])
     return idx.to(torch.int32), valid

@@ -3,7 +3,8 @@
 Port of ``genie_tpu/ops/segment.py``. The edge-list reductions
 (``segment_sum``, ``segment_mean``, ``segment_max``, ``segment_softmax``)
 reduce rows of ``data`` into ``num_segments`` buckets given per-row segment
-ids, as ``jax.ops.segment_*`` do (an empty segment's max is -inf). GENIE's
+ids, as ``jax.ops.segment_*`` do (an empty segment's max is -inf), and
+:func:`spmm` is a sparse-by-dense product over an edge list. GENIE's
 graphs have fixed fan-in (station kNN k=8, source kNN k=15), so a mean
 aggregation on them is a gather plus a masked mean over a k axis, or, with
 the row-stochastic matrix ``A`` that :func:`aggregation_matrix` builds, one
@@ -44,6 +45,18 @@ def segment_softmax(scores, segment_ids, num_segments: int):
     e = torch.exp(scores - m[ids])
     z = segment_sum(e, ids, num_segments)
     return e / torch.clamp_min(z, 1e-20)[ids]
+
+
+def spmm(edge_src, edge_dst, x, num_dst: int, edge_weight=None, aggr: str = "sum"):
+    """For every edge (s → d), ``x[s]`` (times its weight) reduced into row
+    ``d`` by ``aggr`` ("sum", "mean" or "max"); differentiable."""
+    if aggr not in ("sum", "mean", "max"):
+        raise ValueError(f"unknown aggr {aggr!r}")
+    msg = x[edge_src.long()]
+    if edge_weight is not None:
+        msg = msg * edge_weight[:, None]
+    reduce = {"sum": segment_sum, "mean": segment_mean, "max": segment_max}[aggr]
+    return reduce(msg, edge_dst, num_dst)
 
 
 def gather_sum(x, nbr_idx, nbr_valid=None):
@@ -135,3 +148,20 @@ def dense_to_neighbours(a):
     w = torch.gather(a, 1, order)
     nbr = torch.where(w != 0, order, torch.zeros_like(order))
     return nbr.to(torch.int32).contiguous(), w.contiguous()
+
+
+def mean_sta_axis(feat, sta_nbr, sta_valid=None, via_matmul: bool = False):
+    """Station-axis mean aggregation by the gather form or, with
+    ``via_matmul``, by one product with the row-stochastic matrix."""
+    if via_matmul:
+        a = aggregation_matrix(sta_nbr, feat.shape[-2], sta_valid, feat.dtype)
+        return matmul_mean_sta_axis(feat, a)
+    return gather_mean_sta_axis(feat, sta_nbr, sta_valid)
+
+
+def mean_src_axis(feat, src_nbr, src_valid=None, via_matmul: bool = False):
+    """Source-axis mean aggregation, in either form (see :func:`mean_sta_axis`)."""
+    if via_matmul:
+        a = aggregation_matrix(src_nbr, feat.shape[-3], src_valid, feat.dtype)
+        return matmul_mean_src_axis(feat, a)
+    return gather_mean_src_axis(feat, src_nbr, src_valid)

@@ -10,7 +10,9 @@ the port's own FMM loader), ``rasterize_surface`` (:166-183), ``make_trv``
 turn FMM tables into a PINN artifact (:63-191): :func:`pinn_sample_bank`,
 :func:`pinn_velocity_prior`, :func:`pinn_error_stats`,
 :func:`pinn_velocity_r2`, around ``models.travel_time_pinn.train_pinn``
-and ``io.save_pinn``. ``train`` has no wandb hook.
+and ``io.save_pinn``; and the objective of ``scripts/nc_optimize_data.py``
+(:func:`optimize_data_objective`, :func:`synthetic_pick_statistics`).
+``train`` has no wandb hook.
 """
 
 from __future__ import annotations
@@ -372,6 +374,45 @@ def pinn_velocity_r2(model, cfg: Config, bank: PinnBank, rng):
                        np.interp(z, cfg.velocity.depths, cfg.velocity.vs)), axis=1)
     dev = next(model.parameters()).device
     return velocity_r2(model, scales.to(dev), src, v_true)
+
+
+# -- scripts/nc_optimize_data.py: the generator's Bayesian optimisation --------
+
+def synthetic_pick_statistics(cfg: Config, ctx: DomainContext, trv_from_cart, generator):
+    """``bayes_opt.pick_statistics`` of the kept picks of one
+    ``synthesize_timeline`` at ``cfg.synth``, drawn from ``generator`` on the
+    context's device (the body of ``nc_optimize_data.py``'s objective,
+    :66-77); the statistics are taken on the host."""
+    from genie_tpu_torch.synth.generator import synthesize_timeline
+    from genie_tpu_torch.train.bayes_opt import pick_statistics
+
+    lo_z = float(ctx.offset_cart[2])
+    depth_rng = (lo_z, lo_z + float(ctx.scale_cart[2]))
+    with torch.no_grad():
+        tl = synthesize_timeline(generator, cfg.synth, ctx.sta_cart, trv_from_cart,
+                                 ctx.scale_cart, ctx.offset_cart, depth_rng,
+                                 n_sta_real=ctx.sta_cart.shape[0])
+    m = tl.pick_mask.cpu().numpy()
+    return pick_statistics(tl.pick_t.cpu().numpy()[m], tl.pick_sta.cpu().numpy()[m],
+                           ctx.sta_cart.cpu().numpy())
+
+
+def optimize_data_objective(cfg: Config, ctx: DomainContext, trv_from_cart, targets,
+                            generator):
+    """The objective of ``scripts/nc_optimize_data.py`` (:62-79) for
+    ``bayes_opt.gp_minimize`` over ``bayes_opt.PARAM_SPACE``: write the
+    vector into ``cfg.synth`` (``apply_params``), synthesize one timeline
+    from ``generator`` and return the relative residual of its pick
+    statistics against ``targets`` (a list of ``pick_statistics``). The
+    loop and its callback stay with the caller, as in the script."""
+    from genie_tpu_torch.train.bayes_opt import apply_params, stats_residual
+
+    def objective(x):
+        apply_params(cfg.synth, x)
+        return stats_residual(synthetic_pick_statistics(cfg, ctx, trv_from_cart,
+                                                        generator), targets)
+
+    return objective
 
 
 def restart_from(path, state: TrainState) -> TrainState:

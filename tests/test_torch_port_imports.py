@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: no JAX, flax, optax or genie_tpu module is
 imported by any genie_tpu_torch module, nothing needs h5py at import (the
-card's machine has none), entry points do not silently run on the CPU, and
+card's machine has none) nor matplotlib (``viz`` imports it inside its
+functions), entry points do not silently run on the CPU, and
 options the port does not carry raise (the detector and pipeline options
 it now carries are taken)."""
 
@@ -34,7 +35,8 @@ load_magnitude_model("projects/NC_EHZ/run6/mag_model_nc.pkl", device="cpu")
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "genie_tpu"))
-print(json.dumps({"modules": names, "bad": bad}))
+print(json.dumps({"modules": names, "bad": bad,
+                  "matplotlib": "matplotlib" in sys.modules}))
 """
 
 
@@ -46,6 +48,7 @@ def test_port_imports_no_jax_flax_optax_or_genie_tpu():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
+    assert not res["matplotlib"]       # genie_tpu_torch.viz imports it inside its functions
     for mod in ("genie_tpu_torch.infer.pipeline", "genie_tpu_torch.ops.fused_round",
                 "genie_tpu_torch.models.layers", "genie_tpu_torch.params",
                 "genie_tpu_torch.io", "genie_tpu_torch.workflow",
@@ -58,7 +61,8 @@ def test_port_imports_no_jax_flax_optax_or_genie_tpu():
                 "genie_tpu_torch.relocation", "genie_tpu_torch.relocation.graphdd",
                 "genie_tpu_torch.native.fmm", "genie_tpu_torch.setup",
                 "genie_tpu_torch.setup.project", "genie_tpu_torch.train.optim",
-                "genie_tpu_torch.graphs.subgraph"):
+                "genie_tpu_torch.graphs.subgraph", "genie_tpu_torch.ops.interp",
+                "genie_tpu_torch.train.bayes_opt", "genie_tpu_torch.viz"):
         assert mod in res["modules"]
 
 

@@ -149,6 +149,35 @@ def test_process_catalog_matches_jax(run):
         assert np.isfinite(b.cov).all()
 
 
+def test_target_audit_matches_jax(run, capsys):
+    """``process_from_sweep(trace=…)`` prints the JAX package's ``[ledger]``
+    lines on the same sweep series (the two planted events and a target
+    no stage covers) and returns the events of ``process`` without it."""
+    g0 = np.asarray(run["ctx"].grids_cart[0])
+    trace = np.array([[*g0[3], 40.0], [*g0[17], 120.0], [150e3, 150e3, -5e3, 60.0]])
+    jp, tp = run["jpipe"], run["tpipe"]
+    capsys.readouterr()
+    jp.process_from_sweep(*run["j_sweep"], *run["picks"], trace=trace)
+    want = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("[ledger]")]
+    n_threads = torch.get_num_threads()
+    torch.set_num_threads(2)        # small CPU ops; more threads only contend
+    try:
+        audited = tp.process_from_sweep(*run["t_sweep"], *run["picks"], trace=trace)
+    finally:
+        torch.set_num_threads(n_threads)
+    got = [ln for ln in capsys.readouterr().out.splitlines() if ln.startswith("[ledger]")]
+    plain = run["t_events"]
+    assert len(want) == 7 and got == want
+    assert "2/3 targets covered; missing [2]" in want[-1]
+    assert tp.ledger["dedup"] == [2]
+    assert list(tp.stage_seconds) == ["candidates", "refine", "associate", "locate",
+                                      "magnitudes"]
+    assert len(audited) == len(plain) >= 1
+    for a, b in zip(plain, audited):
+        assert np.array_equal(a.picks, b.picks) and np.array_equal(a.pos_cart, b.pos_cart)
+        assert a.time == b.time
+
+
 def test_span_association_matches_jax(run):
     """The shared-window ("span") association mode."""
     jp, tp = run["jpipe"], run["tpipe"]
