@@ -17,7 +17,11 @@ Phases (any failure exits non-zero):
      ``torch.matmul`` formulation, with the kernel's share of its bound and
      its achieved GB/s and TFLOP/s; each form again in its edge form (E = 4,
      the updated model definition's per-station and per-source tables),
-     held and timed the same way;
+     held and timed the same way; then all six forms again at 1,000 and
+     2,048 stations (drawn from ``--seed`` in the run6 grid box, k = 8;
+     4 windows × 512 sources = 2048 rows), where the kernel keeps its
+     per-row Y buffer in device memory (past about 900 stations), held and
+     timed the same way;
   3. build an NC-scale domain: the run6 grids (5 × 500 sources), 374
      stations drawn from ``--seed`` inside the grid box, homogeneous travel
      times from the mean run6 velocities, the 10,000-node detection query
@@ -156,6 +160,29 @@ Phases (any failure exits non-zero):
      starts) against the statistics of two timelines at run6's ``synth:``
      values, a stand-in for the BSSA pick days (not in the repo): every
      residual finite.
+ 14. ``[shard]`` (run after phase 4; ``shard_phase``): the multi-device
+     package on one card. This process builds the inputs and their
+     references on the card, then starts a gloo group of 4 processes of
+     this script (``--shard-worker``), all on ``cuda:0`` (NCCL refuses two
+     ranks on one GPU), and holds their results: (a)
+     ``make_sharded_detection_forward`` on the run6 grid (grid 0: 500
+     sources × the 374 stations, 125 per rank, 2 windows) against the
+     dense one-process forward, y and x_q within 1e-4; (b) the same at pod
+     width cut to one card: 1,000 stations and 8,192 sources (2,048 per
+     rank) drawn from ``--seed`` in the run6 box; (c)
+     ``make_subgraph_sharded_detection_forward`` at (b)'s size with an
+     all-True pair mask (within 1e-4 of dense), then with run6's pair mask
+     (``max_deg_offset`` 1.5, ``k_nearest_pairs`` 30): finite, the same on
+     every rank, stations carried per rank against dense; (d) (b) with the
+     bf16 wire, within 2e-2 of the f32 wire; (e) ranks 0 and 1 (a
+     sub-group) take one data-parallel step of run6's training
+     configuration resumed from ``run6/params.pkl`` on one 8-window batch
+     (4 windows per rank) against one process taking the same step: each
+     gradient leaf within 1e-3 × its max |g|, the weights after Adam within
+     1e-5. Each path's kernel launches per rank (set to 0 just before it,
+     read just after) must be positive. Prints halo rows valid / moved and
+     exchange ms per rank, peak memory and seconds; one card shows
+     correctness, not scaling.
 
 It prints per-stage times, event counts, launches, peak memory, the card's
 name and power limit, a JSON line describing every kernel, and as its last
@@ -223,6 +250,16 @@ def run6_config():
     return cfg
 
 
+def nvidia_smi() -> list:
+    """Each card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()
+
+
 def cuda_time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     import torch
 
@@ -268,22 +305,25 @@ def round_bound(rows, n_sta, cx, cz, m, h, k, z_is_x, e=0, n_src=0):
     return nbytes, flops, max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def check_kernel(sta_nbr, sta_w, seed: int):
+def check_kernel(sta_nbr, sta_w, seed: int, n_win: int = 16, n_src: int = 500,
+                 dense_entry: bool = True):
     """Kernel vs plain version for the three round forms at run6 widths,
-    each also in its edge form (E = 4, the updated model definition: 16
-    windows × 500 sources, random tables in [-1, 1], the range of
-    ``mean_rel_pos_embed``). Returns the per-form records of the run6 forms
-    and of the edge forms (launches here are comparison launches)."""
+    each also in its edge form (E = 4, the updated model definition, random
+    tables in [-1, 1], the range of ``mean_rel_pos_embed``), over ``n_win``
+    windows × ``n_src`` sources (16 × 500 = 8000 rows at run6). Returns the
+    per-form records of the run6 forms and of the edge forms (launches here
+    are comparison launches); each record names the kernel's plan (where Y
+    and the neighbour table live)."""
     import torch
     import torch.nn.functional as F
 
     from genie_tpu_torch.ops.fused_round import (fused_dual_round, fused_round,
-                                                 fused_round_plain)
+                                                 fused_round_plain, kernel_plan)
     from genie_tpu_torch.ops.segment import aggregation_matrix, dense_to_neighbours
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(seed)
-    n_win, n_src, n_sta = 16, 500, int(sta_nbr.shape[0])
+    n_sta = int(sta_nbr.shape[0])
     rows = n_win * n_src
     k = int(sta_nbr.shape[1])
     a_dense = aggregation_matrix(sta_nbr, n_sta)
@@ -340,7 +380,7 @@ def check_kernel(sta_nbr, sta_w, seed: int):
             nbytes, flops, bound_ms, bound_by = round_bound(rows, n_sta, cx, cz, m, h,
                                                             k, z_is_x, e, n_src)
             rec = dict(form=label, rows=rows, n_sta=n_sta, cx=cx, cz=cz, m=m, h=h, e=e,
-                       max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                       k=k, plan=kernel_plan(n_sta, cx, cz, e, m, k, h), max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                        bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops,
                        share_of_bound=bound_ms / ms, gb_per_s=nbytes / ms / 1e6,
                        tflop_per_s=flops / ms / 1e9)
@@ -350,8 +390,10 @@ def check_kernel(sta_nbr, sta_w, seed: int):
         del x, z, agg_src, mask
         torch.cuda.empty_cache()
     for r0, r4 in zip(records, edge_records):
-        print(f"[kernel] {r4['form']}: {r4['ms']:.4f} ms against {r0['ms']:.4f} ms "
-              f"(+{100 * (r4['ms'] / r0['ms'] - 1):.1f} %)", flush=True)
+        print(f"[kernel] {r4['form']} at {n_sta} stations: {r4['ms']:.4f} ms against "
+              f"{r0['ms']:.4f} ms (+{100 * (r4['ms'] / r0['ms'] - 1):.1f} %)", flush=True)
+    if not dense_entry:
+        return records, edge_records
 
     # the JAX-signature entry (dense A_sta → padded neighbour list)
     xs = randn(64, 16, 8)
@@ -372,33 +414,53 @@ def check_kernel(sta_nbr, sta_w, seed: int):
 
 
 # -- phase 3 ---------------------------------------------------------------
-def build_domain(cfg, seed: int, dev="cuda"):
-    import torch
-
-    from genie_tpu_torch.geometry import Projection
-    from genie_tpu_torch.models.travel_time import HomogeneousTravelTime
-    from genie_tpu_torch.train.trainer import build_domain_context
-
-    dev = torch.device(dev)
+def grid_box():
+    """The run6 grids (lat/lon/depth and Cartesian) and their lat/lon/depth
+    box."""
     z = np.load(GRIDS / "grids_500.npz")
     grids_lla = z["grids_lla"].astype(np.float32)
-    grids_cart = z["grids_cart"].astype(np.float32)
-    proj = Projection.from_center(cfg.region.center)
-    rng = np.random.default_rng(seed)
     lo = grids_lla.reshape(-1, 3).min(0)
     hi = grids_lla.reshape(-1, 3).max(0)
-    n_sta = cfg.graph.max_sta
+    return grids_lla, z["grids_cart"].astype(np.float32), lo, hi
+
+
+def draw_stations(cfg, rng, n_sta: int):
+    """``n_sta`` stations uniform in the run6 grid box (elevations U[-500,
+    1500] m): (lat/lon/elevation f32, Cartesian f32)."""
+    from genie_tpu_torch.geometry import Projection
+
+    _, _, lo, hi = grid_box()
     sta_lla = np.stack((rng.uniform(lo[0], hi[0], n_sta),
                         rng.uniform(lo[1], hi[1], n_sta),
                         rng.uniform(-500.0, 1500.0, n_sta)), axis=1)
-    sta_cart = proj.to_cart_np(sta_lla).astype(np.float32)
-    trv = HomogeneousTravelTime(proj, float(np.mean(cfg.velocity.vp)),
-                                float(np.mean(cfg.velocity.vs)))
+    proj = Projection.from_center(cfg.region.center)
+    return sta_lla.astype(np.float32), proj.to_cart_np(sta_lla).astype(np.float32)
+
+
+def homogeneous_trv(cfg):
+    """Homogeneous travel times at the mean run6 vp/vs."""
+    from genie_tpu_torch.geometry import Projection
+    from genie_tpu_torch.models.travel_time import HomogeneousTravelTime
+
+    return HomogeneousTravelTime(Projection.from_center(cfg.region.center),
+                                 float(np.mean(cfg.velocity.vp)),
+                                 float(np.mean(cfg.velocity.vs)))
+
+
+def build_domain(cfg, seed: int, dev="cuda"):
+    import torch
+
+    from genie_tpu_torch.train.trainer import build_domain_context
+
+    dev = torch.device(dev)
+    grids_lla, grids_cart, _, _ = grid_box()
+    sta_lla, sta_cart = draw_stations(cfg, np.random.default_rng(seed), cfg.graph.max_sta)
+    trv = homogeneous_trv(cfg)
     sta_t = torch.as_tensor(sta_cart, device=dev)
     trv_grids = torch.stack([trv.from_cart(sta_t, torch.as_tensor(g, device=dev))
                              for g in grids_cart])
-    ctx = build_domain_context(cfg, sta_lla.astype(np.float32), sta_cart,
-                               grids_lla, grids_cart, trv_grids, dev)
+    ctx = build_domain_context(cfg, sta_lla, sta_cart, grids_lla, grids_cart,
+                               trv_grids, dev)
     return ctx, trv
 
 
@@ -2118,9 +2180,440 @@ def extras_phase(pipe, cfg, ctx, trv, picks, seed: int, card: str, dev="cuda",
     return launches
 
 
+# -- phase 2b: the kernel past the old station limit -------------------------
+def check_kernel_large(cfg, seed: int, sizes=(1000, 2048), n_win: int = 4,
+                       n_src: int = 512):
+    """The kernel against its plain version for all six forms at network
+    sizes whose Y buffer does not fit in shared memory beside the ring (over
+    about 900 stations at H = 30): stations drawn from ``seed`` in the run6
+    grid box, their k = 8 station graph, 4 windows × 512 sources = 2048 rows.
+    Returns the records of both sizes."""
+    import torch
+
+    from genie_tpu_torch.graphs.build import build_station_graph
+    from genie_tpu_torch.ops.segment import aggregation_weights
+
+    records = []
+    for n_sta in sizes:
+        _, sta_cart = draw_stations(cfg, np.random.default_rng(seed + n_sta), n_sta)
+        nbr, valid = build_station_graph(torch.as_tensor(sta_cart, device="cuda"),
+                                         cfg.graph.k_sta_edges)
+        r0, r4 = check_kernel(nbr.to(torch.int32).contiguous(),
+                              aggregation_weights(nbr, valid).contiguous(), seed,
+                              n_win=n_win, n_src=n_src, dense_entry=False)
+        records += r0 + r4
+        torch.cuda.empty_cache()
+    return records
+
+
+# -- phase 14: [shard] -----------------------------------------------------------
+SHARD_RANKS = 4
+SHARD_TIMEOUT_S = 300
+
+
+def _graph_dict(graph):
+    return {f: getattr(graph, f).detach().cpu() for f in graph._fields}
+
+
+def _scene(graph, sta_pos, x_query, cfg, seed: int, n_win: int, dev):
+    """A product scene on ``graph``: ``n_win`` windows of features U[0, 0.5)
+    with picks where they exceed 0.2 (the tiny scene of
+    ``tests/test_detector.py`` at full width), the query nodes attached to
+    the grid, the pipeline's 9 time offsets."""
+    import torch
+
+    from genie_tpu_torch.graphs.build import build_query_attachment
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_src, n_sta = graph.edge_feat.shape[:2]
+    feat = torch.rand((n_win, n_src, n_sta, 4), generator=gen, device=dev) * 0.5
+    xq = torch.as_tensor(x_query, device=dev)
+    return dict(graph=graph, sta_pos=sta_pos, feat=feat, mask=(feat > 0.2).float(),
+                x_query=xq, x_query_idx=build_query_attachment(
+                    graph.src_pos, xq, k=cfg.graph.k_spatial_attn),
+                t_query=torch.linspace(-cfg.model.t_win / 2, cfg.model.t_win / 2, 9,
+                                       device=dev)[:, None])
+
+
+def shard_scenes(cfg, ctx, x_query, seed: int, dev, n_sta_b: int = 1000,
+                 n_src_b: int = 8192, n_q: int = 2000):
+    """(a) the run6 grid: grid 0 of the phase-3 domain (500 sources, its 374
+    stations, 2 windows); (b) pod width cut to one card: ``n_sta_b``
+    stations and ``n_src_b`` sources drawn from ``seed`` in the run6 box
+    (depths in the grids' range), k = 8 / 15 graphs, 1 window; the first
+    ``n_q`` detection query nodes. Returns (a, b, the (n_src_b, n_sta_b)
+    pair mask at run6's ``max_deg_offset`` 1.5 and ``k_nearest_pairs`` 30)."""
+    import torch
+
+    from genie_tpu_torch.geometry import Projection
+    from genie_tpu_torch.graphs.build import (build_edge_feat, build_source_graph,
+                                              build_station_graph)
+    from genie_tpu_torch.graphs.subgraph import pair_mask
+    from genie_tpu_torch.models.detector import GraphBundle
+
+    k_sta, k_src = cfg.graph.k_sta_edges, cfg.graph.k_spc_edges
+    nbr, valid = build_station_graph(ctx.sta_cart, k_sta)
+    n_sta = ctx.sta_cart.shape[0]
+    graph_a = GraphBundle(nbr, valid, ctx.src_nbr[0], torch.ones(n_sta, dtype=torch.bool,
+                                                                 device=dev),
+                          ctx.edge_feat[0], ctx.grids_cart[0], ctx.time_ptr_p[0],
+                          ctx.time_ptr_s[0], torch.tensor(ctx.dt0, device=dev),
+                          torch.tensor(ctx.dt, device=dev), ctx.trv_grids[0])
+    scene_a = _scene(graph_a, ctx.sta_cart, x_query[:n_q], cfg, seed + 140, 2, dev)
+
+    rng = np.random.default_rng(seed + 141)
+    sta_lla, sta_cart = draw_stations(cfg, rng, n_sta_b)
+    _, _, lo, hi = grid_box()
+    src_lla = np.stack([rng.uniform(lo[i], hi[i], n_src_b) for i in range(3)], axis=1)
+    proj = Projection.from_center(cfg.region.center)
+    src_cart = torch.as_tensor(proj.to_cart_np(src_lla).astype(np.float32), device=dev)
+    src_lla = torch.as_tensor(src_lla.astype(np.float32), device=dev)
+    sta_lla = torch.as_tensor(sta_lla, device=dev)
+    sta_cart = torch.as_tensor(sta_cart, device=dev)
+    nbr, valid = build_station_graph(sta_cart, k_sta)
+    scale, _ = cfg.region.scale_offset(extend=True)
+    zi = torch.zeros((1, 1, 1), dtype=torch.int32, device=dev)
+    graph_b = GraphBundle(nbr, valid, build_source_graph(src_cart, k_src),
+                          torch.ones(n_sta_b, dtype=torch.bool, device=dev),
+                          build_edge_feat(src_lla, sta_lla, scale), src_cart, zi, zi,
+                          torch.tensor(0.0, device=dev), torch.tensor(1.0, device=dev),
+                          torch.zeros((1, 1, 2), device=dev))
+    scene_b = _scene(graph_b, sta_cart, x_query[:n_q], cfg, seed + 142, 1, dev)
+    return scene_a, scene_b, pair_mask(src_lla, sta_lla, 1.5, 30)
+
+
+def _forward_scene(fwd, sc):
+    return fwd(sc["feat"], sc["mask"], sc["x_query"], sc["x_query_idx"], sc["t_query"])
+
+
+def _scene_to(sc, dev):
+    from genie_tpu_torch.models.detector import GraphBundle
+
+    out = {k: v.to(dev) for k, v in sc.items() if k != "graph"}
+    out["graph"] = GraphBundle(**{f: v.to(dev) for f, v in sc["graph"].items()})
+    return out
+
+
+def _train_ref_state(cfg_t, dev):
+    """run6's weights and Adam state at step 20000, as ``--restart`` reads
+    them."""
+    from genie_tpu_torch.train.trainer import TrainState, make_optimizer
+    from genie_tpu_torch.workflow import restart_from
+
+    model = load_model(cfg_t).to(dev)
+    return restart_from(RUN6 / "params.pkl",
+                        TrainState(model, make_optimizer(model, cfg_t), 0))
+
+
+def shard_worker(d, rank: int, world: int, port: int):
+    """One rank of ``[shard]``'s group: gloo with every rank on ``cuda:0``,
+    or NCCL with rank r on ``cuda:r``. Runs the sharded forwards (a)-(d) on
+    this rank's sources, then, on ranks 0 and 1 (a sub-group), the
+    data-parallel step (e). Writes ``out_RANK.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from genie_tpu_torch.ops.fused_round import fused_round
+    from genie_tpu_torch.parallel.mesh import make_mesh
+    from genie_tpu_torch.parallel.product_shard import halo_exchange
+    from genie_tpu_torch.parallel.sharded_detector import (
+        make_sharded_detection_forward, make_subgraph_sharded_detection_forward)
+    from genie_tpu_torch.synth.generator import WindowBatch
+    from genie_tpu_torch.train.trainer import DomainContext, make_train_step_from_batch
+
+    d = Path(d)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    backend = (d / "backend").read_text()
+    dev = torch.device((d / "device").read_text())
+    if backend == "nccl":
+        dev = torch.device("cuda", rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_mesh(device=dev)
+        inp = torch.load(d / "inputs.pt", map_location=dev)
+        cfg = run6_config()
+        model = load_model(cfg).to(dev).eval()
+        out = {"mesh": mesh.describe()}
+
+        def drive(tag, fwd, sc):
+            """The path under test: launch count set to 0 just before, read
+            just after."""
+            torch.cuda.synchronize()
+            dist.barrier()
+            torch.cuda.reset_peak_memory_stats()
+            fused_round.launches = 0
+            t0 = time.perf_counter()
+            y, x = _forward_scene(fwd, sc)
+            torch.cuda.synchronize()
+            out[tag] = dict(y=y.cpu(), x=x.cpu(), launches=fused_round.launches,
+                            s=time.perf_counter() - t0,
+                            peak=torch.cuda.max_memory_allocated())
+
+        scenes = {t: _scene_to(inp[t], dev) for t in ("a", "b")}
+        for tag, sc in scenes.items():
+            fwd, part = make_sharded_detection_forward(model, sc["graph"], sc["sta_pos"],
+                                                       mesh)
+            drive(tag, fwd, sc)
+            n = part.n_shards
+            valid = sum(int(v[(rank - dd) % n].sum())
+                        for dd, v in zip(part.offsets, part.off_send_valid))
+            x_l = torch.randn((sc["feat"].shape[0], part.n_local,
+                               sc["feat"].shape[2], 30), device=dev)
+            ms = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                dist.barrier()
+                t0 = time.perf_counter()
+                halo_exchange(x_l, part, mesh)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+            out[tag].update(n_local=part.n_local, halo_rows_valid=valid,
+                            halo_rows_moved=part.halo_total, offsets=list(part.offsets),
+                            exchange_ms=ms)
+        sc = scenes["b"]
+        fwd, _ = make_sharded_detection_forward(model, sc["graph"], sc["sta_pos"], mesh,
+                                                wire_dtype=torch.bfloat16)
+        drive("d", fwd, sc)
+        n_sta = sc["feat"].shape[2]
+        for tag, a in (("c_all", torch.ones_like(inp["pair_mask"])),
+                       ("c_pair", inp["pair_mask"])):
+            fwd, part, sub = make_subgraph_sharded_detection_forward(
+                model, sc["graph"], sc["sta_pos"], mesh, a)
+            drive(tag, fwd, sc)
+            carried = int(sub.sel_valid[rank].sum())
+            out[tag].update(n_sel=sub.n_sel, carried=carried,
+                            product_bytes=part.n_local * (sub.n_sel + 1) * 30 * 4,
+                            dense_product_bytes=part.n_local * n_sta * 30 * 4)
+        del scenes, sc, fwd
+        torch.cuda.empty_cache()
+
+        group2 = dist.new_group([0, 1])
+        if rank < 2:
+            cfg_t = run6_train_config()
+            mesh2 = make_mesh(group2, device=dev)
+            ctx = DomainContext(**inp["ctx"])
+            wb = WindowBatch(**inp["wb"])
+            state = _train_ref_state(cfg_t, dev)
+            step = make_train_step_from_batch(cfg_t, ctx, homogeneous_trv(cfg_t).from_cart,
+                                              mesh=mesh2)
+            torch.cuda.synchronize()
+            dist.barrier(group=group2)
+            torch.cuda.reset_peak_memory_stats()
+            fused_round.launches = 0
+            t0 = time.perf_counter()
+            state, metrics = step(state, wb)
+            torch.cuda.synchronize()
+            out["e"] = dict(
+                s=time.perf_counter() - t0, launches=fused_round.launches,
+                peak=torch.cuda.max_memory_allocated(), mesh=mesh2.describe(),
+                windows=int(wb.feat.shape[0]) // mesh2.size,
+                grads={n: p.grad.cpu() for n, p in state.model.named_parameters()},
+                params={n: p.detach().cpu() for n, p in state.model.named_parameters()},
+                loss=float(metrics["loss"]))
+        dist.barrier()
+        torch.save(out, d / f"out_{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def run_shard_group(d: Path, world: int):
+    """Start ``world`` ranks of this script as ``--shard-worker`` processes,
+    wait for all (killing any left at the time limit) and fail unless every
+    one exits 0. Returns every rank's outputs."""
+    import torch
+
+    port = _free_port()
+    procs, logs = [], []
+    try:
+        for r in range(world):
+            log = open(d / f"rank_{r}.log", "w")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--shard-worker", str(d),
+                 str(r), str(world), str(port)], cwd=ROOT, stdout=log,
+                stderr=subprocess.STDOUT))
+        deadline = time.time() + SHARD_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(deadline - time.time(), 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            tail = (d / f"rank_{r}.log").read_text()[-4000:]
+            fail(f"[shard] rank {r} of {world} exited {p.returncode}:\n{tail}")
+    return [torch.load(d / f"out_{r}.pt") for r in range(world)]
+
+
+def shard_phase(cfg, ctx, trv, x_query, seed: int, card: str, dev="cuda",
+                backend: str = "gloo", ranks: int = SHARD_RANKS):
+    """Phase 14: the multi-device package. A gloo group of ``ranks``
+    processes, all on ``cuda:0`` (NCCL refuses two ranks on one GPU), or,
+    with ``backend="nccl"`` on a machine with several cards, an NCCL group
+    of one process per card, runs (a) ``make_sharded_detection_forward`` on the run6 grid,
+    (b) the same at pod width cut to one card, (c)
+    ``make_subgraph_sharded_detection_forward`` at (b)'s size with an
+    all-True pair mask and with run6's, (d) (b) with the bf16 wire; ranks 0
+    and 1 then take (e) one data-parallel training step. This process holds
+    every result against its reference on the card. Returns the kernel
+    launches per rank of each path."""
+    import shutil
+
+    import torch
+
+    from genie_tpu_torch.ops.fused_round import fused_round
+    from genie_tpu_torch.train.trainer import generate_batch, make_train_step_from_batch
+
+    t_all = time.time()
+    dev = torch.device(dev)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    d = Path(tempfile.mkdtemp(prefix="genie-shard-"))
+    (d / "device").write_text(str(dev))
+    (d / "backend").write_text(backend)
+    try:
+        scene_a, scene_b, pmask = shard_scenes(cfg, ctx, x_query, seed, dev)
+        model = load_model(cfg).to(dev).eval()
+        ref = {}
+        for tag, sc in (("a", scene_a), ("b", scene_b)):
+            fused_round.launches = 0
+            with torch.no_grad():
+                ref[tag] = model.forward_detection_only(
+                    sc["feat"], sc["mask"], sc["graph"], sc["sta_pos"], sc["x_query"],
+                    sc["x_query_idx"], sc["t_query"])
+            if fused_round.launches <= 0:
+                fail(f"[shard] the dense reference ({tag}) did not launch the kernel")
+        cfg_t = run6_train_config()
+        wb = generate_batch(torch.Generator(device=dev).manual_seed(seed + 143), cfg_t,
+                            ctx, trv.from_cart)
+        state = _train_ref_state(cfg_t, dev)
+        state, metrics = make_train_step_from_batch(cfg_t, ctx, trv.from_cart)(state, wb)
+        ref_grads = {n: p.grad.detach().clone() for n, p in state.model.named_parameters()}
+        ref_params = {n: p.detach().clone() for n, p in state.model.named_parameters()}
+        ref_loss = float(metrics["loss"])
+        del state
+        torch.save({"a": {k: (_graph_dict(v) if k == "graph" else v.cpu())
+                          for k, v in scene_a.items()},
+                    "b": {k: (_graph_dict(v) if k == "graph" else v.cpu())
+                          for k, v in scene_b.items()},
+                    "pair_mask": pmask.cpu(),
+                    "ctx": {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+                            for k, v in ctx._asdict().items()},
+                    "wb": {k: v.cpu() for k, v in wb._asdict().items()}}, d / "inputs.pt")
+        n_sta_b = scene_b["feat"].shape[2]
+        del scene_a, scene_b, wb
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t_setup = time.time() - t_all
+        t0 = time.time()
+        outs = run_shard_group(d, ranks)
+        t_group = time.time() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+    if backend == "gloo":
+        print(f"[shard] {ranks} ranks of one gloo group on one card ({card}): "
+              f"{outs[0]['mesh']}. One card shows correctness, not scaling: the "
+              f"ranks share its SMs and memory, and the halo crosses host memory.",
+              flush=True)
+    else:
+        print(f"[shard] {ranks} ranks of one {backend} group, one card each "
+              f"({card}): {outs[0]['mesh']}.", flush=True)
+    launches = {}
+    for tag, want, gate, what in (("a", ref["a"], TOL, "dense (run6 grid)"),
+                                  ("b", ref["b"], TOL, "dense (pod width)"),
+                                  ("c_all", ref["b"], TOL, "dense (all-True mask)"),
+                                  ("d", ref["b"], 2e-2, "dense (bf16 wire)")):
+        for r, o in enumerate(outs):
+            res = o[tag]
+            err = max(float((res["y"] - want[0].cpu()).abs().max()),
+                      float((res["x"] - want[1].cpu()).abs().max()))
+            rec = {k: v for k, v in res.items() if k not in ("y", "x")}
+            rec.update(rank=r, max_abs_err_vs=what, max_abs_err=err,
+                       peak_gib=res["peak"] / 2**30)
+            print(f"[shard] ({tag}) " + json.dumps(rec), flush=True)
+            if not np.isfinite(err) or err > gate:
+                fail(f"[shard] ({tag}) rank {r}: max |sharded - {what}| = {err} > {gate}")
+            if res["launches"] <= 0:
+                fail(f"[shard] ({tag}) rank {r} launched the fused_round kernel 0 times")
+        launches[tag] = [o[tag]["launches"] for o in outs]
+    for r, o in enumerate(outs):
+        d16 = float((o["d"]["y"] - o["b"]["y"]).abs().max())
+        if not 0.0 < d16 <= 2e-2:
+            fail(f"[shard] (d) rank {r}: bf16 wire vs f32 wire {d16} (want (0, 2e-2])")
+        pr = o["c_pair"]
+        rec = {k: v for k, v in pr.items() if k not in ("y", "x")}
+        rec.update(rank=r, n_sta=n_sta_b, product_share_of_dense=pr["product_bytes"]
+                   / pr["dense_product_bytes"], peak_gib=pr["peak"] / 2**30,
+                   max_abs_diff_vs_rank0=float((pr["y"] - outs[0]["c_pair"]["y"]).abs().max()),
+                   max_abs_diff_vs_dense=float((pr["y"] - ref["b"][0].cpu()).abs().max()),
+                   bf16_vs_f32_wire=d16)
+        print("[shard] (c_pair) " + json.dumps(rec), flush=True)
+        if not (torch.isfinite(pr["y"]).all() and torch.isfinite(pr["x"]).all()):
+            fail(f"[shard] (c) rank {r}: the pair-masked forward is not finite")
+        if not rec["max_abs_diff_vs_rank0"] <= TOL:
+            fail(f"[shard] (c) ranks 0 and {r} returned different outputs")
+        if pr["launches"] <= 0:
+            fail(f"[shard] (c) rank {r} launched the fused_round kernel 0 times")
+    launches["c_pair"] = [o["c_pair"]["launches"] for o in outs]
+
+    grad_rel, param_err = {}, 0.0
+    for r, o in enumerate(outs[:2]):
+        e = o["e"]
+        for n, g in ref_grads.items():
+            g = g.cpu()
+            rel = float((e["grads"][n] - g).abs().max() / g.abs().max().clamp_min(1e-30))
+            grad_rel[n] = max(grad_rel.get(n, 0.0), rel)
+            param_err = max(param_err, float((e["params"][n] - ref_params[n].cpu())
+                                             .abs().max()))
+        print("[shard] (e) " + json.dumps({
+            "rank": r, "mesh": e["mesh"], "windows": e["windows"], "s": e["s"],
+            "launches": e["launches"], "peak_gib": e["peak"] / 2**30, "loss": e["loss"],
+            "loss_one_process": ref_loss}), flush=True)
+        if e["launches"] != 4 * e["windows"]:
+            fail(f"[shard] (e) rank {r}: {e['launches']} launches for {e['windows']} "
+                 f"windows")
+    worst = max(grad_rel, key=grad_rel.get)
+    print("[shard] (e) " + json.dumps({
+        "max_rel_grad_err": grad_rel[worst], "worst_param": worst,
+        "max_abs_param_err_after_adam": param_err, "n_params": len(grad_rel)}), flush=True)
+    if not grad_rel[worst] <= 1e-3:
+        fail(f"[shard] (e) gradient of {worst} off by {grad_rel[worst]} of its max |g|")
+    if not param_err <= 1e-5:
+        fail(f"[shard] (e) weights after Adam off by {param_err}")
+    launches["e"] = [o["e"]["launches"] for o in outs[:2]]
+    print(f"[shard] set-up {t_setup:.1f} s, group {t_group:.1f} s, phase "
+          f"{time.time() - t_all:.1f} s", flush=True)
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--shard-worker", nargs=4, metavar=("DIR", "RANK", "WORLD", "PORT"),
+                    help="run one rank of the [shard] phase's group (started by "
+                         "this script itself)")
+    ap.add_argument("--shard-nccl", action="store_true",
+                    help="on a machine with several cards: build the kernel and "
+                         "run only [shard], over NCCL with one rank per card")
     args = ap.parse_args()
 
     import torch
@@ -2130,6 +2623,10 @@ def main():
     if not (ROOT / "genie_tpu_torch" / "csrc").is_dir() or not RUN6.is_dir():
         fail(f"the genie_tpu_torch package and projects/ are not next to {__file__}")
     sys.path.insert(0, str(ROOT))
+    if args.shard_worker:
+        d, rank, world, port = args.shard_worker
+        shard_worker(d, int(rank), int(world), int(port))
+        return
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_all = time.time()
@@ -2143,6 +2640,17 @@ def main():
     cfg = run6_config()
     t0 = time.time()
     ctx, trv = build_domain(cfg, args.seed)
+    if args.shard_nccl:
+        n = torch.cuda.device_count()
+        if n < 2:
+            fail(f"--shard-nccl needs several cards, found {n}")
+        x_query = np.load(GRIDS / "x_query_10000.npy").astype(np.float32)
+        launches_s = shard_phase(cfg, ctx, trv, x_query, args.seed,
+                                 "; ".join(nvidia_smi()), backend="nccl", ranks=n)
+        print(json.dumps({"shard_launches_per_rank": launches_s}))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": n}}))
+        return
     model = load_model(cfg)
     x_query = np.load(GRIDS / "x_query_10000.npy").astype(np.float32)
     pipe = InferencePipeline(model, cfg, ctx, trv.from_cart, x_query_grid=x_query)
@@ -2154,6 +2662,7 @@ def main():
     sta_nbr = pipe.sta_nbr
     sta_w = aggregation_weights(pipe.sta_nbr, pipe.sta_nbr_valid)
     records, edge_records = check_kernel(sta_nbr, sta_w, args.seed)
+    large_records = check_kernel_large(cfg, args.seed)
 
     picks = make_picks(ctx, trv, args.seed)
     print(f"[picks] {len(picks[0])} picks over 600 s, {len(picks[3])} planted "
@@ -2198,19 +2707,16 @@ def main():
           f"wall {wall:.3f} s, max_memory_allocated {peak} B ({peak / 2**30:.2f} GiB)")
 
     profile_request(pipe, picks)
-
-    pinn = check_pinn(ctx, args.seed)
     del pipe
     torch.cuda.empty_cache()
+    card = nvidia_smi()[0]
+    launches_s = shard_phase(cfg, ctx, trv, x_query, args.seed, card)
+    torch.cuda.empty_cache()
+
+    pinn = check_pinn(ctx, args.seed)
     pipe_p, ctx_p, trv_p, mag = build_production(cfg, ctx, pinn, model, x_query)
     launches_p, picks_p = production_request(pipe_p, cfg, ctx_p, trv_p, mag, args.seed)
     locate_at_limits(ctx_p, trv_p, pinn, args.seed)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    if smi.returncode != 0:
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
     launches_x = extras_phase(pipe_p, cfg, ctx_p, trv_p, picks_p, args.seed, card)
     del pipe_p, ctx_p, trv_p, mag
     torch.cuda.empty_cache()
@@ -2241,13 +2747,17 @@ def main():
         "launches": launches_t,
         "launches_by_path": {"homogeneous": launches, "production": launches_p,
                              "train": launches_t, "calibrate_and_relocate": launches_cr,
-                             "options": launches_o, "extras_trace": launches_x},
-        "max_abs_err": max(r["max_abs_err"] for r in records + edge_records),
-        "max_abs_diff": max(r["max_abs_err"] for r in records + edge_records),
+                             "options": launches_o, "extras_trace": launches_x,
+                             "shard_per_rank": launches_s},
+        "max_abs_err": max(r["max_abs_err"] for r in records + edge_records
+                           + large_records),
+        "max_abs_diff": max(r["max_abs_err"] for r in records + edge_records
+                            + large_records),
         "ms": r1["ms"], "plain_ms": r1["plain_ms"], "bound_ms": r1["bound_ms"],
         "bound_by": r1["bound_by"], "library_ms": r1["library_ms"],
         "forms": records,
         "edge_forms": edge_records,
+        "large_network_forms": large_records,
         "backward_check": {"route": "pytorch ops (FusedRound.backward)",
                            "max_rel_grad_err": max(r["max_rel_grad_err"]
                                                    for r in bwd_records + bwd_edge),

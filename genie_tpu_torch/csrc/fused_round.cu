@@ -63,8 +63,17 @@
 //     16-byte .cg copies for the aligned body of each run, 4-byte copies
 //     for its ragged ends, the run placed at the same offset within a
 //     16-byte line as in device memory. The copy of the next chunk is in
-//     flight while the current one is computed. A shape whose two buffers
-//     do not fit in shared memory is refused.
+//     flight while the current one is computed. A shape whose weights and
+//     two buffers do not fit in shared memory is refused.
+//  2b. Large networks: where Y (n_sta x HP floats) does not fit in shared
+//     memory beside the weights and the ring (over about 900 stations at
+//     H = 30), each block keeps its Y in its own slice of a scratch buffer
+//     in device memory that the caller allocates (grid x n_sta x HP
+//     floats: 17 MB at 1,000 stations on 132 blocks, which stays in L2).
+//     Phase 0 writes the slice and phase 1 gathers from it with plain
+//     (coherent) loads, the same barriers ordering them as in shared
+//     memory. YG, a template parameter, picks the buffer; a shape whose Y
+//     fits keeps the shared-memory layout and code path unchanged.
 //  4. Register-blocked f32 products. Each thread owns TS = S*HP/(4*NT)
 //     stations (6 at H = 30, 3 at H = 15) x (4 columns of h1 + the same 4
 //     of h2); all lanes of a station group read the same station (a
@@ -119,6 +128,7 @@ int vec_of(const void* base, int w) {
 // Shared-memory layout of one launch, in floats from the start.
 struct Plan {
   int tab;              // neighbour table staged in shared memory or not
+  int ygl;              // Y in the device-memory scratch (1) or shared (0)
   int vx, va, vm, vz;   // vector widths of the x/agg_src/mask/z rows
   int b, t, y, ring, sa, sm, buf, total;
 };
@@ -137,14 +147,22 @@ Plan make_plan(int n_sta, int cx, int cz, int e, int m, int k, int h) {
   p.buf = p.sm + pad4((long long)S * m + 4);
   if (p.buf < pad4((long long)S * cz + 4)) p.buf = pad4((long long)S * cz + 4);
   if (p.buf < pad4((long long)S * 2 * h)) p.buf = pad4((long long)S * 2 * h);
-  // the neighbour table where it fits, else read from device memory
-  for (p.tab = 1;; p.tab = 0) {
-    p.y = p.t + (p.tab ? pad4(2LL * n_sta * ((k + 1) & ~1)) : 0);
-    p.ring = p.y + n_sta * hp;
-    p.total = p.ring + 2 * p.buf;
-    if ((long long)p.total * 4 <= MAX_SMEM || !p.tab) break;
+  // Y in shared memory where it fits, else in device memory; then the
+  // neighbour table where it fits, else read from device memory. In order:
+  // (Y, table) shared, Y shared only, table shared only, neither.
+  for (p.ygl = 0; p.ygl <= 1; ++p.ygl) {
+    for (p.tab = 1; p.tab >= 0; --p.tab) {
+      p.y = p.t + (p.tab ? pad4(2LL * n_sta * ((k + 1) & ~1)) : 0);
+      p.ring = p.y + (p.ygl ? 0 : n_sta * hp);
+      p.total = p.ring + 2 * p.buf;
+      if ((long long)p.total * 4 <= MAX_SMEM) return p;
+    }
   }
-  return p;  // may be over the limit; the wrapper refuses it then
+  p.ygl = 1;
+  p.tab = 0;
+  p.y = p.ring = p.t;
+  p.total = p.ring + 2 * p.buf;
+  return p;  // over the limit; the wrapper refuses it
 }
 
 __device__ __forceinline__ float prelu(float v, float a) {
@@ -266,7 +284,7 @@ __device__ __forceinline__ void segment_v(int v, float (&acc1)[TS][4],
     segment<HP, TS, 1, H1, H2>(acc1, acc2, in, w, len);
 }
 
-template <int HP, int E>
+template <int HP, int E, bool YG>
 __global__ void __launch_bounds__(NT, 1)
 fused_round_kernel(const float* __restrict__ x, const float* __restrict__ z,
                    const float* __restrict__ agg_src,
@@ -278,8 +296,8 @@ fused_round_kernel(const float* __restrict__ x, const float* __restrict__ z,
                    const float* __restrict__ b1, const float* __restrict__ w2,
                    const float* __restrict__ b2,
                    const float* __restrict__ slopes, float* __restrict__ out,
-                   int rows, int n_sta, int n_src, int cx, int cz, int m, int k,
-                   int h, Plan p) {
+                   float* y_scratch, int rows, int n_sta, int n_src, int cx,
+                   int cz, int m, int k, int h, Plan p) {
   constexpr int S = chunk_of(HP);
   constexpr int NG = HP / 4;    // column groups (4 of h1 + the same 4 of h2)
   constexpr int NSG = NT / NG;  // station groups
@@ -291,7 +309,9 @@ fused_round_kernel(const float* __restrict__ x, const float* __restrict__ z,
   float* Wsh = smem;            // (d, 2*HP): W1 in [0, HP), W2 in [HP, 2HP)
   float* Bsh = smem + p.b;      // (2*HP)
   int2* tab = p.tab ? reinterpret_cast<int2*>(smem + p.t) : nullptr;
-  float* Ysh = smem + p.y;      // (n_sta, HP): PReLU(z[r]) @ W1a
+  // (n_sta, HP): PReLU(z[r]) @ W1a, in shared memory or in this block's
+  // slice of the scratch (written and read by this block only)
+  float* Ysh = YG ? y_scratch + (long long)blockIdx.x * n_sta * HP : smem + p.y;
   float* ring = smem + p.ring;  // 2 x buf
 
   const int tid = threadIdx.x;
@@ -498,12 +518,12 @@ fused_round_kernel(const float* __restrict__ x, const float* __restrict__ z,
   }
 }
 
-// Blocks of fused_round_kernel<HP, E> that the current device holds at once
-// with `smem` bytes of shared memory each. The SM count and the occupancy
-// are fixed per (device, smem), so they are queried once and kept; the
-// shared-memory attribute is raised only when a launch needs more than any
-// before it on that device.
-template <int HP, int E>
+// Blocks of fused_round_kernel<HP, E, YG> that the current device holds at
+// once with `smem` bytes of shared memory each. The SM count and the
+// occupancy are fixed per (device, smem), so they are queried once and kept;
+// the shared-memory attribute is raised only when a launch needs more than
+// any before it on that device.
+template <int HP, int E, bool YG>
 cudaError_t resident_blocks(size_t smem, int* blocks) {
   static std::mutex mu;
   static std::map<std::pair<int, size_t>, int> known;
@@ -517,7 +537,7 @@ cudaError_t resident_blocks(size_t smem, int* blocks) {
     *blocks = it->second;
     return cudaSuccess;
   }
-  auto kern = fused_round_kernel<HP, E>;
+  auto kern = fused_round_kernel<HP, E, YG>;
   size_t& raised = attr[dev];
   if (smem > raised) {
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -535,47 +555,62 @@ cudaError_t resident_blocks(size_t smem, int* blocks) {
   return cudaSuccess;
 }
 
-template <int HP, int E>
-cudaError_t launch(const float* x, const float* z, const float* agg_src,
-                   const float* mask, const int* nbr, const float* wts,
-                   const float* e_sta, const float* e_src, const float* w1,
-                   const float* b1, const float* w2, const float* b2,
-                   const float* slopes, float* out, int rows, int n_sta,
-                   int n_src, int cx, int cz, int m, int k, int h,
-                   cudaStream_t stream) {
-  Plan p = make_plan(n_sta, cx, cz, E, m, k, h);
-  p.vx = vec_of(x, cx);
-  p.va = vec_of(agg_src, cz);
-  p.vm = vec_of(mask, m);
-  p.vz = vec_of(z, cz);
+// The arguments of one launch.
+struct Args {
+  const float *x, *z, *agg_src, *mask;
+  const int* nbr;
+  const float *wts, *e_sta, *e_src, *w1, *b1, *w2, *b2, *slopes;
+  float *out, *y_scratch;
+  long long scratch_bytes;
+  int rows, n_sta, n_src, cx, cz, e, m, k, h;
+  cudaStream_t stream;
+};
+
+// Launch fused_round_kernel<HP, E, YG> on plan p; with `need` set, only
+// report the scratch bytes the launch would need (0 with Y in shared memory).
+template <int HP, int E, bool YG>
+cudaError_t launch(const Args& a, const Plan& p, long long* need) {
   const size_t smem = (size_t)p.total * sizeof(float);
   int resident = 0;
-  const cudaError_t err = resident_blocks<HP, E>(smem, &resident);
+  const cudaError_t err = resident_blocks<HP, E, YG>(smem, &resident);
   if (err != cudaSuccess) return err;
-  const int grid = rows < resident ? rows : resident;
-  fused_round_kernel<HP, E><<<grid, NT, smem, stream>>>(
-      x, z, agg_src, mask, nbr, wts, e_sta, e_src, w1, b1, w2, b2, slopes, out,
-      rows, n_sta, n_src, cx, cz, m, k, h, p);
+  const int grid = a.rows < resident ? a.rows : resident;
+  const long long bytes =
+      YG ? (long long)grid * a.n_sta * HP * (long long)sizeof(float) : 0;
+  if (need) {
+    *need = bytes;
+    return cudaSuccess;
+  }
+  if (YG && (a.y_scratch == nullptr || a.scratch_bytes < bytes))
+    return cudaErrorInvalidValue;
+  fused_round_kernel<HP, E, YG><<<grid, NT, smem, a.stream>>>(
+      a.x, a.z, a.agg_src, a.mask, a.nbr, a.wts, a.e_sta, a.e_src, a.w1, a.b1,
+      a.w2, a.b2, a.slopes, a.out, a.y_scratch, a.rows, a.n_sta, a.n_src, a.cx,
+      a.cz, a.m, a.k, a.h, p);
   return cudaGetLastError();
 }
 
-// launch<HP, E> for the run-time edge width e (0, or 4 for the edge form)
-template <int HP>
-cudaError_t launch_e(int e, const float* x, const float* z,
-                     const float* agg_src, const float* mask, const int* nbr,
-                     const float* wts, const float* e_sta, const float* e_src,
-                     const float* w1, const float* b1, const float* w2,
-                     const float* b2, const float* slopes, float* out, int rows,
-                     int n_sta, int n_src, int cx, int cz, int m, int k, int h,
-                     cudaStream_t stream) {
-  if (e == 0)
-    return launch<HP, 0>(x, z, agg_src, mask, nbr, wts, e_sta, e_src, w1, b1,
-                         w2, b2, slopes, out, rows, n_sta, n_src, cx, cz, m, k,
-                         h, stream);
-  if (e == 4)
-    return launch<HP, 4>(x, z, agg_src, mask, nbr, wts, e_sta, e_src, w1, b1,
-                         w2, b2, slopes, out, rows, n_sta, n_src, cx, cz, m, k,
-                         h, stream);
+// launch<HP, E, YG> for the run-time H, edge width (0, or 4 for the edge
+// form) and plan
+cudaError_t dispatch(const Args& a, long long* need) {
+  Plan p = make_plan(a.n_sta, a.cx, a.cz, a.e, a.m, a.k, a.h);
+  if ((long long)p.total * 4 > MAX_SMEM) return cudaErrorInvalidConfiguration;
+  p.vx = vec_of(a.x, a.cx);
+  p.va = vec_of(a.agg_src, a.cz);
+  p.vm = vec_of(a.mask, a.m);
+  p.vz = vec_of(a.z, a.cz);
+#define FR_LAUNCH(HP)                                                 \
+  if (a.e == 0)                                                       \
+    return p.ygl ? launch<HP, 0, true>(a, p, need)                    \
+                 : launch<HP, 0, false>(a, p, need);                  \
+  if (a.e == 4)                                                       \
+    return p.ygl ? launch<HP, 4, true>(a, p, need)                    \
+                 : launch<HP, 4, false>(a, p, need);                  \
+  return cudaErrorInvalidValue;
+  if (a.h <= 8) { FR_LAUNCH(8) }
+  if (a.h <= 16) { FR_LAUNCH(16) }
+  if (a.h <= 32) { FR_LAUNCH(32) }
+#undef FR_LAUNCH
   return cudaErrorInvalidValue;
 }
 
@@ -584,40 +619,54 @@ cudaError_t launch_e(int e, const float* x, const float* z,
 extern "C" {
 
 // Least shared memory a launch needs, in bytes (the wrapper checks it
-// against the card's per-block limit before launching); the neighbour
-// table is staged beside it only where it fits.
+// against the card's per-block limit before launching): the weights and the
+// ring, with Y and the neighbour table in device memory.
 long long fused_round_smem_bytes(int n_sta, int cx, int cz, int e, int m,
                                  int h) {
-  return make_plan(n_sta, cx, cz, e, m, 0, h).total * (long long)sizeof(float);
+  const Plan p = make_plan(n_sta, cx, cz, e, m, 0, h);
+  return (p.t + 2LL * p.buf) * (long long)sizeof(float);
+}
+
+// The plan of a launch: bit 0 set if the neighbour table is staged in shared
+// memory, bit 1 set if Y lives in the device-memory scratch.
+int fused_round_plan(int n_sta, int cx, int cz, int e, int m, int k, int h) {
+  const Plan p = make_plan(n_sta, cx, cz, e, m, k, h);
+  return p.tab | (p.ygl << 1);
+}
+
+// Bytes of Y scratch a launch on the current device needs (0 when Y fits in
+// shared memory), or -(CUDA error) if the device cannot be queried.
+long long fused_round_scratch_bytes(int rows, int n_sta, int cx, int cz, int e,
+                                    int m, int k, int h) {
+  if (rows <= 0 || n_sta <= 0) return 0;
+  Args a = {};
+  a.rows = rows; a.n_sta = n_sta; a.cx = cx; a.cz = cz; a.e = e; a.m = m;
+  a.k = k; a.h = h;
+  long long need = 0;
+  const cudaError_t err = dispatch(a, &need);
+  return err == cudaSuccess ? need : -(long long)err;
 }
 
 // Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok).
 // Weights are row-major (cx + cz + e + m, h); slopes = {a_sta, a_out}.
 // e = 0 (e_sta, e_src unused, may be null) or 4: e_sta (n_sta, e), e_src
-// (n_src, e), row r reading source r mod n_src.
+// (n_src, e), row r reading source r mod n_src. y_scratch holds
+// scratch_bytes (at least fused_round_scratch_bytes; may be null when that
+// is 0).
 int fused_round_launch(const float* x, const float* z, const float* agg_src,
                        const float* mask, const int* nbr, const float* wts,
                        const float* e_sta, const float* e_src,
                        const float* w1, const float* b1, const float* w2,
                        const float* b2, const float* slopes, float* out,
-                       int rows, int n_sta, int n_src, int cx, int cz, int e,
-                       int m, int k, int h, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                       float* y_scratch, int rows, int n_sta, int n_src, int cx,
+                       int cz, int e, int m, int k, int h,
+                       long long scratch_bytes, void* stream) {
   if (rows <= 0 || n_sta <= 0) return (int)cudaSuccess;
   if (e != 0 && n_src <= 0) return (int)cudaErrorInvalidValue;
-  if (h <= 8)
-    return (int)launch_e<8>(e, x, z, agg_src, mask, nbr, wts, e_sta, e_src, w1,
-                            b1, w2, b2, slopes, out, rows, n_sta, n_src, cx, cz,
-                            m, k, h, s);
-  if (h <= 16)
-    return (int)launch_e<16>(e, x, z, agg_src, mask, nbr, wts, e_sta, e_src,
-                             w1, b1, w2, b2, slopes, out, rows, n_sta, n_src,
-                             cx, cz, m, k, h, s);
-  if (h <= 32)
-    return (int)launch_e<32>(e, x, z, agg_src, mask, nbr, wts, e_sta, e_src,
-                             w1, b1, w2, b2, slopes, out, rows, n_sta, n_src,
-                             cx, cz, m, k, h, s);
-  return (int)cudaErrorInvalidValue;
+  const Args a = {x, z, agg_src, mask, nbr, wts, e_sta, e_src, w1, b1, w2, b2,
+                  slopes, out, y_scratch, scratch_bytes, rows, n_sta, n_src,
+                  cx, cz, e, m, k, h, static_cast<cudaStream_t>(stream)};
+  return (int)dispatch(a, nullptr);
 }
 
 const char* fused_round_error_string(int err) {

@@ -15,6 +15,12 @@ attachment tables, which may be shared. The options of the JAX ``Detector``
 source positions as six more input channels of the trunk and of the
 association conv) and ``normalize_readin`` (the read-in's ``sum_gain``); the
 edge and position tables are shared across windows as well.
+
+The product stage (:meth:`Detector._trunk_product`) runs on any
+:class:`GraphBundle` whose product-sized fields (``edge_feat``, ``src_pos``,
+``sta_mask``, the station tables) describe the rows it is given, with the
+source-axis mean taken by ``ProductTables.src_agg`` where set: the sharded
+trunks of ``parallel/sharded_detector.py`` run it on one rank's rows.
 """
 
 from __future__ import annotations
@@ -79,9 +85,11 @@ class QuerySet(NamedTuple):
 
 
 def product_tables(graph: GraphBundle, sta_pos=None,
-                   scale_rel: float = 30e3) -> ProductTables:
-    """The station (nbr, valid/deg) table and the dense source-kNN mean;
-    with ``sta_pos`` (the updated model definition) also the edge tables
+                   scale_rel: float = 30e3, src_agg=None) -> ProductTables:
+    """The station (nbr, valid/deg) table and the dense source-kNN mean, or,
+    with a ``src_agg`` hook (the sharded trunks), the hook in its place and
+    no dense matrix (at 100k sources it alone would take 40 GB); with
+    ``sta_pos`` (the updated model definition) also the edge tables
     ``e_sta`` (stations, over ``sta_nbr_valid``) and ``e_src`` (the grid's
     ``src_pos``) of :func:`mean_rel_pos_embed` (JAX ``_rel_tables``,
     ``detector.py:140-150``)."""
@@ -93,8 +101,9 @@ def product_tables(graph: GraphBundle, sta_pos=None,
     return ProductTables(
         sta_nbr=graph.sta_nbr.to(torch.int32).contiguous(),
         sta_w=aggregation_weights(graph.sta_nbr, graph.sta_nbr_valid).contiguous(),
-        a_src=aggregation_matrix(graph.src_nbr, graph.src_nbr.shape[0]),
-        e_sta=e_sta, e_src=e_src)
+        a_src=(None if src_agg is not None else
+               aggregation_matrix(graph.src_nbr, graph.src_nbr.shape[0])),
+        e_sta=e_sta, e_src=e_src, src_agg=src_agg)
 
 
 class Detector(nn.Module):
@@ -201,15 +210,21 @@ class Detector(nn.Module):
                             picks.pair_idx, picks.pair_valid, picks.mask)
         return y, x_q, arv[..., 0:1], arv[..., 1:2]
 
+    def _detection_heads(self, x_spatial, y_latent, graph: GraphBundle,
+                         x_query, x_query_idx, t_query):
+        """Grid and query detection from the node stage: (y, x_q)."""
+        y = self.temporal_attn(y_latent, t_query)
+        x_q = self.spatial_attn(x_spatial, x_query_idx, graph.src_pos, x_query)
+        return y, self.temporal_attn(x_q, t_query)
+
     def forward_detection_only(self, feat, mask, graph: GraphBundle, sta_pos,
                                x_query, x_query_idx, t_query):
         """Detection sweep without the association head (the reference's
         ``forward_fixed_source``). Returns (y, x_q)."""
         _, x_spatial, y_latent = self._detection_trunk(
             feat, mask, graph, self._tables(graph, sta_pos), sta_pos)
-        y = self.temporal_attn(y_latent, t_query)
-        x_q = self.spatial_attn(x_spatial, x_query_idx, graph.src_pos, x_query)
-        return y, self.temporal_attn(x_q, t_query)
+        return self._detection_heads(x_spatial, y_latent, graph, x_query,
+                                     x_query_idx, t_query)
 
     def forward_trunk(self, feat, mask, graph: GraphBundle, sta_pos):
         """Product trunk only: (x_spatial, y_latent), each (B, n_src, 30)."""

@@ -12,7 +12,10 @@ The four dual-relation rounds (two in :class:`DataAggregation`, two in
 (``ops/fused_round.py``) through ``FusedRound``, which gives it a gradient
 for training. The station mean runs inside it over the
 ``(sta_nbr, sta_w)`` table; the source-axis mean ``A_src @ x`` stays a
-``torch.matmul`` (plain XLA in the JAX package). With ``use_edges`` (the
+``torch.matmul`` (plain XLA in the JAX package), or is the hook
+``ProductTables.src_agg`` (the JAX ``src_agg``), through which the sharded
+trunks of ``parallel/sharded_detector.py`` take it over the halo exchange
+while the kernel runs on each rank's rows. With ``use_edges`` (the
 updated model definition) the kernel takes the per-station and per-source
 relative-position tables of :func:`mean_rel_pos_embed` as its edge form.
 """
@@ -20,7 +23,7 @@ relative-position tables of :func:`mean_rel_pos_embed` as its edge form.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 from torch import nn
@@ -58,10 +61,22 @@ class ProductTables(NamedTuple):
 
     sta_nbr: torch.Tensor  # (n_sta, k_sta) int32 station kNN
     sta_w: torch.Tensor    # (n_sta, k_sta) f32 valid/deg weights
-    a_src: torch.Tensor    # (n_src, n_src) row-stochastic source-kNN mean
+    # (n_src, n_src) row-stochastic source-kNN mean; None with src_agg
+    a_src: torch.Tensor | None
     # edge tables of the updated model definition, None without it
     e_sta: torch.Tensor | None = None  # (n_sta, 4)
     e_src: torch.Tensor | None = None  # (n_src, 4)
+    # source-axis mean override, (…, n_src, n_sta, C) -> the same shape: the
+    # sharded trunks' halo-exchange aggregation (JAX ``src_agg``)
+    src_agg: Callable | None = None
+
+
+def src_mean(x, tables: ProductTables):
+    """The source-axis mean of a product tensor: ``tables.src_agg`` where
+    given, else the dense ``A_src`` product."""
+    if tables.src_agg is not None:
+        return tables.src_agg(x)
+    return matmul_mean_src_axis(x, tables.a_src)
 
 
 def mean_rel_pos_embed(pos, nbr, scale_rel, valid=None):
@@ -113,14 +128,14 @@ class DataAggregation(nn.Module):
         mask = mask.contiguous()
         tr = act(self.init_trns(torch.cat((tr, mask), dim=-1))).contiguous()
         # round 1: the station mean reads act11(tr) directly
-        agg_src = matmul_mean_src_axis(act12(tr), tables.a_src)
+        agg_src = src_mean(act12(tr), tables)
         tr = FusedRound.apply(tr, tr, agg_src, mask, tables.sta_nbr, tables.sta_w,
                               self.l1_t1_2.weight, self.l1_t1_2.bias,
                               self.l1_t2_2.weight, self.l1_t2_2.bias,
                               _slopes(act11, act1), tables.e_sta, tables.e_src)
         # round 2: Dense before each PReLU, applied first as a plain linear
         z = self.l2_t1_1(tr).contiguous()
-        agg_src = matmul_mean_src_axis(act22(self.l2_t2_1(tr)), tables.a_src)
+        agg_src = src_mean(act22(self.l2_t2_1(tr)), tables)
         return FusedRound.apply(tr, z, agg_src, mask, tables.sta_nbr, tables.sta_w,
                                 self.l2_t1_2.weight, self.l2_t1_2.bias,
                                 self.l2_t2_2.weight, self.l2_t2_2.bias,
@@ -322,7 +337,7 @@ class DataAggregationAssociationPhase(nn.Module):
                 (self.l2_t1_1, self.l2_t2_1, self.l2_t1_2, self.l2_t2_2,
                  act21, act22, act2)):
             z = t1_1(tr).contiguous()
-            agg_src = matmul_mean_src_axis(a_src(t2_1(tr)), tables.a_src)
+            agg_src = src_mean(a_src(t2_1(tr)), tables)
             tr = FusedRound.apply(tr, z, agg_src, mask, tables.sta_nbr, tables.sta_w,
                                   t1_2.weight, t1_2.bias, t2_2.weight, t2_2.bias,
                                   _slopes(a_sta, a_out), tables.e_sta, tables.e_src)

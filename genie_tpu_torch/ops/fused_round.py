@@ -24,6 +24,12 @@ the ``e`` columns are absent.
 :func:`fused_round` launches the kernel (``csrc/fused_round.cu``) on CUDA
 tensors and raises if it cannot; it takes :func:`fused_round_plain` only for
 tensors that lie on the CPU. ``fused_round.launches`` counts kernel launches.
+Any station count launches: past about 900 stations (H = 30) the kernel's
+per-row buffer ``Y = PReLU(z) @ W1a`` no longer fits in shared memory beside
+the ring, and the wrapper allocates a per-block scratch for it in device
+memory (:func:`kernel_plan` says which plan a shape takes); only shapes
+whose weights and ring do not fit (thousands of channels) or H > 32 are
+refused.
 :class:`FusedRound` wraps it for autograd (training), with the analytic
 backward :func:`fused_round_backward_plain` in PyTorch ops.
 :func:`fused_dual_round` keeps the JAX signature (dense ``A_sta``, flax
@@ -130,10 +136,15 @@ def _pre_activations(x, z, agg_src, mask, nbr, w, w1, b1, w2, b2, slopes,
 def _bind(lib):
     p = ctypes.c_void_p
     i = ctypes.c_int
-    lib.fused_round_launch.argtypes = [p] * 14 + [i] * 9 + [p]
+    ll = ctypes.c_longlong
+    lib.fused_round_launch.argtypes = [p] * 15 + [i] * 9 + [ll, p]
     lib.fused_round_launch.restype = ctypes.c_int
     lib.fused_round_smem_bytes.argtypes = [i] * 6
-    lib.fused_round_smem_bytes.restype = ctypes.c_longlong
+    lib.fused_round_smem_bytes.restype = ll
+    lib.fused_round_scratch_bytes.argtypes = [i] * 8
+    lib.fused_round_scratch_bytes.restype = ll
+    lib.fused_round_plan.argtypes = [i] * 7
+    lib.fused_round_plan.restype = ctypes.c_int
     lib.fused_round_error_string.argtypes = [i]
     lib.fused_round_error_string.restype = ctypes.c_char_p
     return lib
@@ -149,6 +160,16 @@ def _library():
 
 # edge widths the kernel is built for (a template parameter)
 KERNEL_EDGE_WIDTHS = (0, 4)
+
+
+def kernel_plan(n_sta: int, cx: int, cz: int, e: int, m: int, k: int, h: int) -> dict:
+    """Where a launch keeps its per-row ``Y = PReLU(z) @ W1a`` buffer and
+    its neighbour table: ``"shared"`` memory, or ``"device"`` memory (Y in a
+    per-block scratch the wrapper allocates, past about 900 stations at
+    H = 30; the table read in place)."""
+    f = int(_library().fused_round_plan(n_sta, cx, cz, e, m, k, h))
+    return {"table": "shared" if f & 1 else "device",
+            "y": "device" if f & 2 else "shared"}
 
 
 def fused_round(x, z, agg_src, mask, nbr, w, w1, b1, w2, b2, slopes,
@@ -227,12 +248,21 @@ def fused_round(x, z, agg_src, mask, nbr, w, w1, b1, w2, b2, slopes,
     e_ptrs = ((tensors["e_sta"].data_ptr(), tensors["e_src"].data_ptr()) if e
               else (None, None))
     with torch.cuda.device(x.device):
+        # past about 900 stations Y lives in device memory, one slice per
+        # resident block (grid x n_sta x HP floats)
+        need = int(lib.fused_round_scratch_bytes(rows, n_sta, cx, cz, e, m, k, h))
+        if need < 0:
+            raise RuntimeError(f"fused_round: cannot size the launch: CUDA error "
+                               f"{-need} ({lib.fused_round_error_string(-need).decode()})")
+        scratch = (torch.empty(need // 4, dtype=torch.float32, device=x.device)
+                   if need else None)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.fused_round_launch(
             x.data_ptr(), z.data_ptr(), agg_src.data_ptr(), mask.data_ptr(),
             nbr.data_ptr(), w.data_ptr(), *e_ptrs, w1t.data_ptr(), b1.data_ptr(),
             w2t.data_ptr(), b2.data_ptr(), slopes.data_ptr(), out.data_ptr(),
-            rows, n_sta, n_src, cx, cz, e, m, k, h, stream)
+            None if scratch is None else scratch.data_ptr(),
+            rows, n_sta, n_src, cx, cz, e, m, k, h, need, stream)
     if err != 0:
         msg = lib.fused_round_error_string(err).decode()
         raise RuntimeError(f"fused_round kernel launch failed: CUDA error "

@@ -26,10 +26,20 @@ gradient of ``(w · losses_i + s · sens_i)/B``, which is the gradient of JAX's
 ``lax.map(checkpoint(one))`` with one window's activation memory.
 ``False`` keeps all B windows in one autograd graph and takes one backward,
 the memory profile of JAX's ``vmap``.
+
+Data parallelism (``mesh=``, a :class:`~genie_tpu_torch.parallel.mesh.Mesh`;
+``__graft_entry__.py``'s step with the window axis sharded): each rank takes
+its block of the batch's windows and runs :func:`loss_fn` on them, whose
+``/B`` is over its local windows; one ``all_reduce`` of a flat bucket (the
+gradients, the loss and its parts, trgts/preds) then averages the
+gradients, so each rank holds the one-process gradient of all B windows and
+Adam steps identically everywhere. An explicit all-reduce rather than DDP:
+the model runs once per window, and DDP's hooks would fire on each.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import time
 from pathlib import Path
@@ -154,9 +164,11 @@ def generate_batch(gen, cfg: Config, ctx: DomainContext, trv_from_cart) -> Windo
             subnetworks=ctx.subnetworks)
 
 
-def step_seed(seed: int, i: int) -> int:
-    """The generator seed of batch (or step) ``i`` of a run seeded ``seed``."""
-    return int(np.random.SeedSequence([seed, i]).generate_state(1, np.uint64)[0] >> 1)
+def step_seed(seed: int, i: int, rank: int | None = None) -> int:
+    """The generator seed of batch (or step) ``i`` of a run seeded ``seed``;
+    under data parallelism, of that step on ``rank``."""
+    entropy = [seed, i] if rank is None else [seed, i, rank]
+    return int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0] >> 1)
 
 
 def build_training_dataset(cfg: Config, ctx: DomainContext, trv_from_cart, out_dir,
@@ -370,7 +382,25 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def _make_step(cfg, ctx, trv_from_cart, batch_fn):
+def _all_reduce_step(model, mesh, total, parts, trgts, preds):
+    """Average the gradients, the loss and its parts over the ranks and sum
+    trgts/preds, in one ``all_reduce`` of a flat bucket."""
+    from genie_tpu_torch.parallel.mesh import all_reduce_
+
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    pieces = [g.reshape(-1) for g in grads] + [
+        total.reshape(1), parts.reshape(-1), trgts.reshape(-1), preds.reshape(-1)]
+    bucket = all_reduce_(torch.cat(pieces), mesh)
+    n_mean = bucket.numel() - trgts.numel() - preds.numel()
+    bucket[:n_mean] /= mesh.size
+    out = list(torch.split(bucket, [t.numel() for t in pieces]))
+    for g, flat in zip(grads, out):
+        g.copy_(flat.view_as(g))
+    total, parts, trgts, preds = out[len(grads):]
+    return total[0], parts, trgts, preds
+
+
+def _make_step(cfg, ctx, trv_from_cart, batch_fn, mesh=None):
     from torch.profiler import record_function
 
     dev = ctx.sta_cart.device
@@ -385,6 +415,10 @@ def _make_step(cfg, ctx, trv_from_cart, batch_fn):
         with record_function("forward_backward"):
             total, (parts, trgts, preds) = loss_fn(state.model, ctx, cfg, wb,
                                                    trv_from_cart, backward=True)
+        if mesh is not None:
+            with record_function("all_reduce"):
+                total, parts, trgts, preds = _all_reduce_step(
+                    state.model, mesh, total, parts, trgts, preds)
         _sync(dev)
         t2 = time.perf_counter()
         with record_function("optimizer"):
@@ -399,21 +433,44 @@ def _make_step(cfg, ctx, trv_from_cart, batch_fn):
     return train_step
 
 
-def make_train_step(cfg: Config, ctx: DomainContext, trv_from_cart):
+def make_train_step(cfg: Config, ctx: DomainContext, trv_from_cart, mesh=None):
     """``train_step(state, generator) -> (state, metrics)``: generate a batch
     on the generator's device, accumulate the loss gradient into
     ``state.model``, take one step of ``state.optimizer``. The seconds of the
     three stages land in ``train_step.stage_seconds``; the device is
     synchronized at each stage boundary, which costs a host-bound step next
-    to nothing."""
+    to nothing. With ``mesh`` each rank draws its ``n_batch / size`` windows
+    from its own generator (seeded by the caller, ``step_seed(seed, i,
+    rank)``: the law of one batch split over the ranks, drawn by other
+    streams) and the gradients are averaged over the ranks (module
+    docstring); the state's model must be the same on every rank."""
+    if mesh is not None:
+        if cfg.train.n_batch % mesh.size:
+            raise ValueError(f"make_train_step: {cfg.train.n_batch} windows do not "
+                             f"divide over {mesh.size} ranks")
+        cfg = copy.deepcopy(cfg)
+        cfg.train.n_batch //= mesh.size
     return _make_step(cfg, ctx, trv_from_cart,
-                      lambda gen: generate_batch(gen, cfg, ctx, trv_from_cart))
+                      lambda gen: generate_batch(gen, cfg, ctx, trv_from_cart), mesh)
 
 
-def make_train_step_from_batch(cfg: Config, ctx: DomainContext, trv_from_cart):
+def make_train_step_from_batch(cfg: Config, ctx: DomainContext, trv_from_cart,
+                               mesh=None):
     """``train_step(state, wb) -> (state, metrics)`` on a pre-built
-    :class:`WindowBatch` (dataset mode)."""
-    return _make_step(cfg, ctx, trv_from_cart, lambda wb: wb)
+    :class:`WindowBatch` (dataset mode). With ``mesh`` every rank is given
+    the whole batch, takes its block of windows (``shard_leading_axis``)
+    and the gradients are averaged over the ranks."""
+    if mesh is None:
+        return _make_step(cfg, ctx, trv_from_cart, lambda wb: wb)
+    from genie_tpu_torch.parallel.mesh import shard_leading_axis
+
+    def local_windows(wb):
+        if wb.feat.shape[0] % mesh.size:
+            raise ValueError(f"{wb.feat.shape[0]} windows do not divide over "
+                             f"{mesh.size} ranks")
+        return shard_leading_axis(wb, mesh)
+
+    return _make_step(cfg, ctx, trv_from_cart, local_windows, mesh)
 
 
 def init_train_state(model, cfg: Config, generator: torch.Generator) -> TrainState:

@@ -428,7 +428,7 @@ def restart_from(path, state: TrainState) -> TrainState:
 
 def train(cfg: Config, ctx: DomainContext, trv, out_dir, n_steps=None,
           log_every: int = 20, seed: int = 0, restart=False,
-          profile_at: int | None = None):
+          profile_at: int | None = None, mesh=None):
     """Training loop on the context's device: a ``Detector`` with
     ``cfg.model``'s options (``use_absolute_pos``,
     ``use_updated_model_definition``, ``normalize_readin``), flax-default
@@ -443,12 +443,22 @@ def train(cfg: Config, ctx: DomainContext, trv, out_dir, n_steps=None,
     uninterrupted one would. ``profile_at``: run that step under
     ``torch.profiler`` and write its Chrome trace to ``out_dir/profile``.
 
+    ``mesh`` (:class:`~genie_tpu_torch.parallel.mesh.Mesh`, with ``ctx`` on
+    its device): data-parallel training, every rank calling ``train`` with
+    the same arguments. The weights start from rank 0's, rank r draws its
+    ``n_batch / size`` windows of step i from a generator seeded by (seed,
+    i, r), and the gradients are averaged over the ranks
+    (``trainer.make_train_step``); rank 0 alone logs, checkpoints and writes
+    the trace.
+
     Returns ``(model, state, history)``; ``history`` holds, per step, the
     metrics as floats and numpy arrays and the step's stage seconds."""
     from genie_tpu_torch.io import save_checkpoint
     from genie_tpu_torch.models.detector import Detector
     from genie_tpu_torch.train.trainer import (init_train_state, make_train_step,
                                                step_seed)
+
+    lead = mesh is None or mesh.rank == 0
 
     dev = ctx.sta_cart.device
     out_dir = Path(out_dir)
@@ -464,15 +474,19 @@ def train(cfg: Config, ctx: DomainContext, trv, out_dir, n_steps=None,
         state = restart_from(out_dir / "ckpt.pkl", state)
     elif restart:
         state = restart_from(restart, state)
-    step_fn = make_train_step(cfg, ctx, trv.from_cart)
+    if mesh is not None:
+        from genie_tpu_torch.parallel.mesh import replicate
+
+        replicate(model, mesh)
+    step_fn = make_train_step(cfg, ctx, trv.from_cart, mesh=mesh)
     log_path = out_dir / f"{cfg.region.name}_output_ver_1.txt"
     n_steps = n_steps if n_steps is not None else cfg.train.n_steps
     history = []
     t0 = time.time()
     start = state.step
     for i in range(start, n_steps):
-        gen.manual_seed(step_seed(seed, i))
-        if profile_at is not None and i == profile_at:
+        gen.manual_seed(step_seed(seed, i, None if mesh is None else mesh.rank))
+        if profile_at is not None and i == profile_at and lead:
             from torch.profiler import ProfilerActivity, profile
 
             acts = [ProfilerActivity.CPU] + (
@@ -486,7 +500,7 @@ def train(cfg: Config, ctx: DomainContext, trv, out_dir, n_steps=None,
         else:
             state, metrics = step_fn(state, gen)
         history.append((metrics, dict(step_fn.stage_seconds)))
-        if i % log_every == 0 or i == n_steps - 1:
+        if lead and (i % log_every == 0 or i == n_steps - 1):
             trgts = metrics["trgts"].cpu().numpy().round(2)
             preds = metrics["preds"].cpu().numpy().round(2)
             line = (f"step {i} loss {float(metrics['loss']):.5f} "
@@ -499,7 +513,7 @@ def train(cfg: Config, ctx: DomainContext, trv, out_dir, n_steps=None,
             print(line)
             with open(log_path, "a") as f:
                 f.write(line + "\n")
-        if (i + 1) % cfg.train.checkpoint_every == 0 or i == n_steps - 1:
+        if lead and ((i + 1) % cfg.train.checkpoint_every == 0 or i == n_steps - 1):
             save_checkpoint(out_dir / "ckpt.pkl", model, state.optimizer, step=i + 1,
                             cfg=cfg)
     history = [({k: (float(v) if v.dim() == 0 else v.cpu().numpy())

@@ -264,11 +264,13 @@ def test_build_cache_key_covers_headers(tmp_path, monkeypatch, edit):
 # 374, 600), one station, one row, rows not a multiple of the persistent
 # grid (133 > 132 SMs; 1000), k = 16 with padded (w = 0) slots, inputs that
 # start off a 16-byte line (offset 1: 4-byte copies and scalar loads), and
-# the shared-memory fallback (600: the round-2 form reads its neighbour table
-# from device memory).
+# the shared-memory fallbacks (600: the round-2 form reads its neighbour
+# table from device memory; 1000 and 2048: Y lives in the device-memory
+# scratch, the table in shared memory at 1000 and in device memory at 2048).
 _CUDA_CASES = [(37, 8, (3, 20), 0), (600, 5, (3, 20), 0), (374, 8, (1,), 0),
                (374, 8, (133,), 0), (129, 16, (1000,), 0), (1, 1, (5,), 0),
-               (256, 8, (7, 3), 0), (374, 8, (9,), 1)]
+               (256, 8, (7, 3), 0), (374, 8, (9,), 1), (1000, 8, (3, 20), 0),
+               (1000, 8, (137,), 1), (2048, 8, (133,), 0)]
 
 
 @pytest.mark.cuda
@@ -328,7 +330,8 @@ def test_cuda_kernel_matches_plain(n_sta, k, lead, offset):
 
 # n_sta, k, leading dims (the last is n_src), float offset; as _CUDA_CASES
 _CUDA_EDGE_CASES = [(37, 8, (3, 20), 0), (600, 5, (2, 20), 0), (374, 8, (16, 500), 0),
-                    (1, 1, (5,), 0), (374, 8, (133,), 0), (374, 8, (3, 7), 1)]
+                    (1, 1, (5,), 0), (374, 8, (133,), 0), (374, 8, (3, 7), 1),
+                    (1000, 8, (2, 70), 0), (2048, 8, (3, 45), 1)]
 
 
 @pytest.mark.cuda
@@ -484,13 +487,20 @@ def test_cuda_edge_fused_round_function_matches_autograd(form):
 
 @pytest.mark.cuda
 def test_cuda_kernel_refuses_shapes_over_shared_memory():
-    """Needs the card: a station count whose Y row and two ring buffers do
-    not fit in a block's shared memory (over about 900 at H = 30) is refused
-    before any launch, not run on a smaller plan."""
+    """Needs the card: a shape whose weights and two ring buffers do not fit
+    in a block's shared memory (here 2,000 input channels) is refused before
+    any launch, not run on a smaller plan; a station count alone never is
+    (Y and the neighbour table move to device memory), and the run6 plan at
+    374 stations keeps both in shared memory."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
+    from genie_tpu_torch.ops.fused_round import kernel_plan
+
     dev = torch.device("cuda")
-    n_sta, k, c, m, h = 1000, 8, 30, 4, 30
+    assert kernel_plan(374, 30, 30, 0, 4, 8, 30) == {"table": "shared", "y": "shared"}
+    assert kernel_plan(1000, 30, 30, 0, 4, 8, 30) == {"table": "shared", "y": "device"}
+    assert kernel_plan(4096, 30, 30, 4, 5, 8, 30)["y"] == "device"
+    n_sta, k, c, m, h = 64, 8, 2000, 4, 30
     x = torch.zeros((2, n_sta, c), device=dev)
     mask = torch.zeros((2, n_sta, m), device=dev)
     nbr = torch.zeros((n_sta, k), dtype=torch.int32, device=dev)

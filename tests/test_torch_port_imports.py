@@ -62,7 +62,10 @@ def test_port_imports_no_jax_flax_optax_or_genie_tpu():
                 "genie_tpu_torch.native.fmm", "genie_tpu_torch.setup",
                 "genie_tpu_torch.setup.project", "genie_tpu_torch.train.optim",
                 "genie_tpu_torch.graphs.subgraph", "genie_tpu_torch.ops.interp",
-                "genie_tpu_torch.train.bayes_opt", "genie_tpu_torch.viz"):
+                "genie_tpu_torch.train.bayes_opt", "genie_tpu_torch.viz",
+                "genie_tpu_torch.parallel", "genie_tpu_torch.parallel.mesh",
+                "genie_tpu_torch.parallel.product_shard",
+                "genie_tpu_torch.parallel.sharded_detector"):
         assert mod in res["modules"]
 
 
