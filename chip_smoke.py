@@ -116,7 +116,8 @@ Phases (any failure exits non-zero):
      (batch 16,384, 30,000 + 2,048 samples per station, one held-out
      station per 20, lr 1e-3 cosine over 40,000 steps to 0.02, clip 1.0),
      cut by a 50-step probe to the largest multiple of 500 steps (at least
-     1000) that fits 60 s: every loss finite and the data term of the last
+     1000) that fits 30 s (60 s before the [workflow] phase joined the
+     script): every loss finite and the data term of the last
      100 steps under half its first value; val / cross-val |Δt|, velocity
      R², ms per step, peak memory and a profiled step; the artifact saved
      to the project's ``Grids/``, read back by ``make_trv`` (times within
@@ -183,6 +184,31 @@ Phases (any failure exits non-zero):
      read just after) must be positive. Prints halo rows valid / moved and
      exchange ms per rank, peak memory and seconds; one card shows
      correctness, not scaling.
+ 15. ``[workflow]`` (run last; ``workflow_phase``): the README's commands
+     (``genie_tpu_torch.scripts``) as a user runs them, handing over through
+     a project directory under ``chip_scratch/``, with run6's
+     ``config.yaml`` and the phase-3 stations. A stations.txt and a
+     picks.txt of six planted events (timed by the production PINN, with
+     amplitudes) plus 1 false pick/s; ``init_project`` as a process of its
+     own (the files exist; the converted picks equal the written ones);
+     ``calculate_travel_times build`` as a job array of 8 processes
+     (``--job j --n-jobs 374`` for every 47th station, the stations
+     ``--job 0 --n-jobs 47`` builds), one table bit-equal to
+     ``build_fmm_tables`` in this process; ``calculate_travel_times train
+     --steps 350`` (the loss falls; ``load_pinn`` reads the pickle); the
+     production PINN then replaces that 350-step one in the project (the
+     picks were timed by it); ``train_model --restart --steps 20002`` from
+     run6's pickle as ``ckpt.pkl`` (two finite losses, step and Adam count
+     20002). Then in this process, on the catalog in memory (no h5py here):
+     ``process_continuous_days``' device function ``workflow.process_picks``
+     on the project's domain, PINN and checkpoint over 600 s (every planted
+     event within 5 km and 0.5 s; the events and the kernel launches those
+     of ``InferencePipeline.process`` on the same inputs); ``calibrate``'s
+     statistics against the planted events (all matched) and its
+     correction fit on homogeneous times (the residual falls);
+     ``relocate``'s graphs (20 of up to 32) and 300 GraphDD steps (the
+     arrays of the JAX command's shapes, finite). One line per command with
+     its wall seconds and peak device memory.
 
 It prints per-stage times, event counts, launches, peak memory, the card's
 name and power limit, a JSON line describing every kernel, and as its last
@@ -2605,6 +2631,271 @@ def shard_phase(cfg, ctx, trv, x_query, seed: int, card: str, dev="cuda",
     return launches
 
 
+# -- phase 15 --------------------------------------------------------------
+# Runs one command module as ``python -m`` does (runpy, as __main__), then
+# prints the process's peak device memory.
+_RUN_AS_MAIN = ("import json, runpy, sys, torch; sys.argv = sys.argv[1:]; "
+                "runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True); "
+                "print('[peak] ' + json.dumps(torch.cuda.max_memory_allocated()))")
+
+
+def start_command(module: str, *args):
+    """``python -m genie_tpu_torch.scripts.<module> <args>`` in a process of
+    its own, from the repo root."""
+    cmd = [sys.executable, "-c", _RUN_AS_MAIN, f"genie_tpu_torch.scripts.{module}",
+           *map(str, args)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def finish_command(proc, label: str, timeout: float = 600.0):
+    """Wait for a command; fail with its exit code and the end of its
+    stderr. Returns (stdout, peak device bytes of its process)."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        fail(f"[workflow] {label} did not end within {timeout:.0f} s")
+    if proc.returncode != 0:
+        fail(f"[workflow] {label} exited {proc.returncode}:\n{err[-4000:]}")
+    return out, json.loads(out.rsplit("[peak] ", 1)[1])
+
+
+def workflow_phase(ctx, pinn, seed: int, dev="cuda", config=None, grid_steps: int = 800,
+                   fmm_every: int = 47, pinn_steps: int = 350, reloc_steps: int = 300):
+    """Phase 15, ``[workflow]``: the README's commands
+    (``genie_tpu_torch.scripts``) in a project directory under
+    ``chip_scratch/``, handing over through its files: ``init_project``,
+    ``calculate_travel_times build`` and ``train``, ``train_model`` as
+    processes of their own; then the device functions of
+    ``process_continuous_days``, ``calibrate`` and ``relocate`` in this
+    process on the catalog in memory (the machine has no h5py). Returns
+    the kernel launches of the process step."""
+    import shutil
+
+    import torch
+
+    from genie_tpu_torch.calibration.corrections import (fit_corrections,
+                                                         interp_weighted,
+                                                         matched_catalog_stats)
+    from genie_tpu_torch.config import load_config
+    from genie_tpu_torch.infer.pipeline import InferencePipeline
+    from genie_tpu_torch.io import load_picks
+    from genie_tpu_torch.ops.fused_round import fused_round
+    from genie_tpu_torch.params import _load_pickle, load_magnitude_model, load_pinn
+    from genie_tpu_torch.scripts import CHECKPOINT_FILE, PINN_FILE
+    from genie_tpu_torch.scripts.calibrate import correction_observations
+    from genie_tpu_torch.scripts.process_continuous_days import load_inputs
+    from genie_tpu_torch.scripts.relocate import (build_graphs, catalog_observations,
+                                                  run_relocate)
+    from genie_tpu_torch.setup.project import load_project
+    from genie_tpu_torch.workflow import (build_fmm_tables, domain_from_project,
+                                          make_trv, process_picks)
+
+    config = RUN6 / "config.yaml" if config is None else config
+    cfg = load_config(config)
+    dev_args = () if dev == "cuda" else ("--device", dev)
+    t_phase = time.time()
+    (ROOT / "chip_scratch").mkdir(exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=ROOT / "chip_scratch")
+    root = Path(tmp.name) / cfg.region.name
+    root.mkdir()
+    rec = {}
+
+    def record(name, wall, peak, **extra):
+        rec[name] = {"wall_s": wall, "peak_bytes": peak, "peak_gib": peak / 2**30, **extra}
+        print(f"[workflow] command {name} " + json.dumps(rec[name]), flush=True)
+
+    # 1. stations.txt and picks.txt → init_project
+    sta_lla = ctx.sta_lla.cpu().numpy().astype(np.float64)
+    n_sta = len(sta_lla)
+    names = [f"W{i:03d}" for i in range(n_sta)]
+    (root / "stations.txt").write_text("".join(
+        f"{nm} {a:.6f} {b:.6f} {c:.1f}\n" for nm, (a, b, c) in zip(names, sta_lla)))
+    mag = load_magnitude_model(MAGNITUDES, device=dev)
+    t_p, s_p, ph_p, ev_pos, ev_t, amp_p, ev_mag = make_picks(ctx, pinn, seed + 20, mag=mag)
+    lines = [f"2017-9-10 {t:.4f} {names[s]} {'P' if ph == 0 else 'S'} {a:.9g}\n"
+             for t, s, ph, a in zip(t_p, s_p, ph_p, amp_p)]
+    (root / "picks.txt").write_text("".join(lines))
+    t0 = time.time()
+    out, peak = finish_command(start_command(
+        "init_project", root, "--config", config, "--stations", root / "stations.txt",
+        "--picks", root / "picks.txt", "--grid-steps", grid_steps, *dev_args),
+        "init_project")
+    record("init_project", time.time() - t0, peak)
+    pj = load_project(root, cfg.region.name)
+    proj = pj["projection"]
+    grids = pj["grids_lla"]
+    pick_file = root / "Picks" / "2017" / f"{cfg.region.name}_2017_9_10_ver_1.npz"
+    t, sta, ph, amp = load_picks(pick_file)
+    want_t = np.array([float(ln.split()[1]) for ln in lines])
+    files_ok = all((root / f).exists() for f in (
+        f"{cfg.region.name}_stations.npz", f"{cfg.region.name}_region.npz",
+        "1d_velocity_model.npz"))
+    picks_ok = (np.array_equal(t, want_t) and np.array_equal(sta, s_p)
+                and np.array_equal(ph, ph_p))
+    print("[workflow] init " + json.dumps({
+        "files": files_ok, "grids": list(grids.shape),
+        "grids_finite": bool(np.isfinite(grids).all()), "picks": len(t),
+        "picks_equal_written": bool(picks_ok), "stdout": out.splitlines()[:4]}), flush=True)
+    if not (files_ok and grids.shape == (cfg.graph.n_grids, cfg.graph.n_spatial_nodes, 3)
+            and np.isfinite(grids).all()):
+        fail("[workflow] init_project did not write the project's files")
+    if not picks_ok:
+        fail("[workflow] the converted pick file differs from picks.txt")
+
+    # 2. the FMM build: --job j --n-jobs n_sta for every fmm_every-th station,
+    #    started together as a job array, beside one station built in-process
+    idx = list(range(0, n_sta, fmm_every))
+    t0 = time.time()
+    procs = [start_command("calculate_travel_times", root, "build", "--config", config,
+                           "--job", j, "--n-jobs", n_sta, *dev_args) for j in idx]
+    try:
+        ref_dir = Path(tmp.name) / "fmm_in_process"
+        build_fmm_tables(cfg, proj, np.asarray(pj["sta_lla"], float), ref_dir,
+                         station_indices=[idx[-1]], verbose=False)
+        peaks = [finish_command(pr, f"build --job {j}")[1] for pr, j in zip(procs, idx)]
+    finally:    # a failed job ends the script: stop the others first
+        for pr in procs:
+            if pr.poll() is None:
+                pr.kill()
+                pr.wait()
+    record("calculate_travel_times build", time.time() - t0, max(peaks), jobs=len(idx))
+    name = f"travel_time_grid_station_{idx[-1]}.npz"
+    za, zb = np.load(root / "TravelTimeData" / name), np.load(ref_dir / name)
+    same = sorted(za.files) == sorted(zb.files) and all(
+        np.array_equal(za[k], zb[k]) for k in za.files)
+    built = sorted(int(f.stem.split("_")[-1])
+                   for f in (root / "TravelTimeData").glob("travel_time_grid_station_*.npz"))
+    print("[workflow] fmm " + json.dumps({"stations": built, "of": n_sta,
+                                          "table_equals_in_process": bool(same),
+                                          "shape": list(za["Tp"].shape)}), flush=True)
+    if built != idx or not same:
+        fail(f"[workflow] the FMM build gave stations {built} (want {idx}); table of "
+             f"station {idx[-1]} equal to the in-process build: {same}")
+
+    # 3. the PINN on those tables
+    t0 = time.time()
+    out, peak = finish_command(start_command(
+        "calculate_travel_times", root, "train", "--config", config, "--steps", pinn_steps,
+        *dev_args), "train")
+    m = _load_pickle(root / PINN_FILE)["metrics"]
+    record("calculate_travel_times train", time.time() - t0, peak, **m)
+    trained = load_pinn(root / PINN_FILE, projection=proj, device=dev)
+    with torch.no_grad():
+        tt = trained.from_cart(ctx.sta_cart[:8], ctx.sta_cart[:4] + 1e4)
+    if not (m["loss_last"] < m["loss_first"] and bool(torch.isfinite(tt).all())):
+        fail(f"[workflow] PINN loss {m['loss_first']} -> {m['loss_last']}, times finite "
+             f"{bool(torch.isfinite(tt).all())}")
+    # a PINN of a few hundred steps is not one to serve: the project takes the
+    # production PINN (Grids/pinn_nc.pkl, 40,000 steps on this region's FMM
+    # box), as a project would after a full `train`; the picks were timed by it
+    shutil.copy(PINN, root / PINN_FILE)
+
+    # 4. train_model: two steps past run6's step 20000
+    shutil.copy(RUN6 / "params.pkl", root / CHECKPOINT_FILE)
+    t0 = time.time()
+    out, peak = finish_command(start_command(
+        "train_model", root, "--config", config, "--restart", "--steps", 20002, *dev_args),
+        "train_model")
+    logged = [ln for ln in out.splitlines() if ln.startswith("step ")]
+    losses = [float(ln.split()[3]) for ln in logged]
+    blob = _load_pickle(root / CHECKPOINT_FILE)
+    record("train_model", time.time() - t0, peak, steps=[int(ln.split()[1]) for ln in logged],
+           losses=losses, ckpt_step=int(blob["step"]),
+           adam_count=int(np.asarray(blob["opt_state"]["count"])))
+    if not (len(losses) == 2 and np.isfinite(losses).all() and int(blob["step"]) == 20002
+            and int(np.asarray(blob["opt_state"]["count"])) == 20002):
+        fail(f"[workflow] train_model: {rec['train_model']}")
+
+    # 5. process_continuous_days' device function, against the pipeline's API
+    (ctx_w, trv_w, model), load_s, _ = _timed(lambda: load_inputs(root, cfg, dev))
+    fused_round.launches = 0
+    events, proc_s, peak = _timed(lambda: process_picks(
+        cfg, ctx_w, trv_w, model, t, sta, ph, amp, 0.0, 600.0, device=dev))
+    launches = fused_round.launches
+    pipe = InferencePipeline(model, cfg, ctx_w, trv_w.from_cart, device=dev)
+    fused_round.launches = 0
+    events_api = pipe.process(t.astype(np.float32), sta, ph.astype(np.float32), 0.0, 600.0,
+                              pick_amp=amp)
+    launches_api = fused_round.launches
+    del pipe
+    d_pos = max((float(np.linalg.norm(a.pos_cart - b.pos_cart))
+                 for a, b in zip(events, events_api)), default=0.0)
+    d_t = max((abs(a.time - b.time) for a, b in zip(events, events_api)), default=0.0)
+    same = len(events) == len(events_api) and all(
+        np.array_equal(a.picks, b.picks) for a, b in zip(events, events_api))
+    record("process_continuous_days (process_picks)", proc_s, peak, load_inputs_s=load_s,
+           events=len(events), launches=launches, api_launches=launches_api,
+           api_events=len(events_api), max_pos_diff_m=d_pos, max_time_diff_s=d_t)
+    print(f"[workflow] process: fused_round launches {launches} (the API request "
+          f"{launches_api})", flush=True)
+    if not (same and d_pos <= 1.0 and d_t <= 1e-3):
+        fail(f"[workflow] process_picks gave {len(events)} events, the API "
+             f"{len(events_api)} (picks equal {same}, {d_pos} m, {d_t} s)")
+    if not (launches > 0 and launches == launches_api):
+        fail(f"[workflow] process launched the kernel {launches} times, the API "
+             f"request {launches_api}")
+    planted_matches("workflow", events, (t, sta, ph, ev_pos, ev_t))
+    import importlib.util
+
+    h5py_here = "present" if importlib.util.find_spec("h5py") else "absent"
+    print(f"[workflow] HDF5: the smoke writes and reads no catalog file (h5py is "
+          f"{h5py_here} here; the H100 machine it was written for has none): "
+          f"process_continuous_days' output, calibrate's and relocate's input and "
+          f"init_project --catalog are tested on the CPU only "
+          f"(tests/test_torch_port_scripts*.py)", flush=True)
+
+    # 6. calibrate's device work: statistics and corrections against the
+    #    planted events, on homogeneous times as the command takes them
+    trv_h = make_trv(cfg, proj, device=dev)
+    ctx_h, _, _ = domain_from_project(root, cfg, trv=trv_h, device=dev)
+    srcs_det = np.array([[*ev.pos_cart, ev.time] for ev in events]).reshape(-1, 4)
+    srcs_ref = np.concatenate((ev_pos, ev_t[:, None]), axis=1)
+    stats = matched_catalog_stats(srcs_det, srcs_ref, mags_ref=ev_mag)
+    src, obs, msk = correction_observations(events, t, sta, srcs_det, srcs_ref,
+                                            ctx_h.sta_cart.shape[0])
+    (coefs, loss), fit_s, peak = _timed(lambda: fit_corrections(
+        trv_h.from_cart, ctx_h.sta_cart, ctx_h.grids_cart[0], src, obs, msk, device=dev))
+    with torch.no_grad():
+        src_t = torch.as_tensor(src, device=dev)
+        base = trv_h.from_cart(ctx_h.sta_cart, src_t).cpu().numpy()
+        corr = interp_weighted(ctx_h.grids_cart[0], coefs, src_t).cpu().numpy()
+    n_obs = max(float(msk.sum()), 1.0)
+    before = float((np.abs(base - obs) * msk).sum() / n_obs)
+    after = float((np.abs(base + corr - obs) * msk).sum() / n_obs)
+    record("calibrate --fit-corrections", fit_s, peak, **stats, fit_loss=loss,
+           mean_abs_residual_before_s=before, mean_abs_residual_after_s=after)
+    if not (stats["n_matched"] == len(ev_t) and stats["residual_xy_mean"] < 5e3
+            and stats["residual_t_mean"] < 0.5):
+        fail(f"[workflow] calibrate's statistics against the planted events: {stats}")
+    if not after < before:
+        fail(f"[workflow] the corrections did not lower the residual: {before} -> {after}")
+
+    # 7. relocate's device work at the command's defaults (20 graphs of up to 32)
+    graphs = build_graphs(ctx_h, *catalog_observations(events, t, sta,
+                                                       ctx_h.sta_cart.shape[0]),
+                          n_graphs=20, graph_size=32)
+    (new_pos, new_t, sta_corr, loss), reloc_s, peak = _timed(
+        lambda: run_relocate(ctx_h, trv_h, graphs, reloc_steps))
+    S = min(32, len(events))
+    n_sta_g = int(graphs[0].sta_sel.shape[0])
+    shapes = {"src_pos": list(new_pos.shape), "src_time": list(new_t.shape),
+              "sta_corr": list(sta_corr.shape)}
+    record("relocate", reloc_s, peak, steps=reloc_steps, graphs=len(graphs),
+           final_loss=loss, shapes=shapes)
+    finite = all(bool(torch.isfinite(a).all()) for a in (new_pos, new_t, sta_corr))
+    if not (shapes == {"src_pos": [S, 3], "src_time": [S], "sta_corr": [n_sta_g, 2]}
+            and finite and np.isfinite(loss)):
+        fail(f"[workflow] relocate gave {shapes} (want {S} sources, {n_sta_g} stations), "
+             f"finite {finite}")
+    tmp.cleanup()
+    print(f"[workflow] phase {time.time() - t_phase:.1f} s", flush=True)
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2733,9 +3024,10 @@ def main():
     launches_cr = fused_round.launches
     torch.cuda.empty_cache()
     fused_round.launches = 0
-    project_phase(pinn, args.seed)
+    project_phase(pinn, args.seed, budget_s=30.0)
     print(f"[project] fused_round launches {fused_round.launches} (the path runs no "
           f"detector)", flush=True)
+    launches_w = workflow_phase(ctx, pinn, args.seed)
     print(f"[card] {card}")
     print(f"[total] {time.time() - t_all:.1f} s")
 
@@ -2748,7 +3040,7 @@ def main():
         "launches_by_path": {"homogeneous": launches, "production": launches_p,
                              "train": launches_t, "calibrate_and_relocate": launches_cr,
                              "options": launches_o, "extras_trace": launches_x,
-                             "shard_per_rank": launches_s},
+                             "shard_per_rank": launches_s, "workflow_process": launches_w},
         "max_abs_err": max(r["max_abs_err"] for r in records + edge_records
                            + large_records),
         "max_abs_diff": max(r["max_abs_err"] for r in records + edge_records

@@ -287,7 +287,7 @@ def train_pinn(generator, model: TravelTimesPN, scales: ScaleParams, sample_fn,
         opt.step()
         hist[i] = torch.stack([total.detach()] + [parts[k].detach() for k in PINN_PARTS])
         if log_every and i % log_every == 0:
-            print(f"pinn step {i}: loss {float(total):.5f}")
+            print(f"pinn step {i}: loss {float(total.detach()):.5f}")
     return model, dict(zip(("total",) + PINN_PARTS, hist.unbind(1)))
 
 

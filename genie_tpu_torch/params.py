@@ -6,8 +6,12 @@
 references ``optax._src.*`` classes: ``ScaleByAdamState`` unpickles into
 :class:`AdamState` with its ``count``, ``mu`` and ``nu`` kept,
 ``EmptyState`` into an empty tuple, and any other optax class into an inert
-stub. ``load_flax_params`` returns the weight tree as nested dicts of numpy
-arrays; ``load_adam_state`` returns the Adam moments under the port's names.
+stub. A ``jax.Array`` in the pickle (``scripts/calculate_travel_times.py``
+pickles the PINN's weights without converting them) unpickles into the
+numpy array it was made from; any other JAX or flax class raises, so
+reading a pickle never imports JAX. ``load_flax_params`` returns the weight
+tree as nested dicts of numpy arrays; ``load_adam_state`` returns the Adam
+moments under the port's names.
 
 ``transplant`` maps that tree onto the port's ``state_dict`` names:
 
@@ -74,14 +78,29 @@ class _EmptyState(NamedTuple):
 _OPTAX_STATES = {"ScaleByAdamState": AdamState, "EmptyState": _EmptyState}
 
 
+def _jax_array_to_numpy(fun, args, arr_state, aval_state):
+    """``jax._src.array._reconstruct_array`` without JAX: the numpy array
+    that a pickled ``jax.Array`` carries."""
+    value = fun(*args)
+    value.__setstate__(arr_state)
+    return value
+
+
 class _NoOptaxUnpickler(pickle.Unpickler):
     def find_class(self, module, name):
-        if module == "optax" or module.startswith("optax."):
+        top = module.split(".")[0]
+        if top == "optax":
             if name in _OPTAX_STATES:
                 return _OPTAX_STATES[name]
             # any other optax object is rebuilt by calling the class; the
             # result is discarded
             return _Inert if name[:1].isupper() else _inert_factory
+        if (module, name) == ("jax._src.array", "_reconstruct_array"):
+            return _jax_array_to_numpy
+        if top in ("jax", "jaxlib", "flax"):
+            raise pickle.UnpicklingError(
+                f"{module}.{name} in a pickle: the port reads numpy arrays and "
+                f"jax.Arrays only")
         return super().find_class(module, name)
 
 

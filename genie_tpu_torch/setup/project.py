@@ -15,8 +15,8 @@ directory it builds:
     HypoDD-format ``catalog.txt`` → ``Catalog/`` hdf5 (``h5py`` is
     imported inside the catalog writer, so this runs where h5py is).
 
-The FDSN station download (obspy, network) is not ported: pass station
-arrays or a stations.txt.
+Stations may also come from a live FDSN inventory query
+(``setup/fdsn.py``; obspy is imported there, inside the function).
 """
 
 from __future__ import annotations
@@ -46,20 +46,28 @@ def read_stations_txt(path):
 
 
 def init_project(root, cfg: Config, sta_lla=None, sta_names=None,
-                 stations_txt=None, n_steps_grids: int = 800, seed: int = 0,
-                 device=None):
+                 stations_txt=None, fdsn=None, n_steps_grids: int = 800,
+                 seed: int = 0, device=None):
     """Create the project tree, projection, stations.npz, region.npz, the
     velocity model and ``cfg.graph.n_grids`` spatial grids of
     ``cfg.graph.n_spatial_nodes`` nodes (depth-weighted k-means, Lloyd
     iterations on ``device``, default ``cuda``). Stations come from
-    ``sta_lla`` arrays or a ``stations_txt`` file. Returns (dirs,
-    projection, grids_lla (n_grids, n_nodes, 3) float32)."""
+    ``sta_lla`` arrays, a ``stations_txt`` file, or, with
+    ``fdsn=dict(starttime=..., endtime=..., network=..., client=...)``, a
+    live FDSN inventory query over the config's region
+    (:func:`genie_tpu_torch.setup.fdsn.download_stations`; requires obspy).
+    Returns (dirs, projection, grids_lla (n_grids, n_nodes, 3) float32)."""
     dirs = project_dirs(root, cfg.region.name)
     if sta_lla is None:
-        if stations_txt is None:
-            raise ValueError("provide sta_lla arrays or a stations_txt path "
-                             "(the FDSN download is not ported)")
-        sta_lla, sta_names = read_stations_txt(stations_txt)
+        if fdsn is not None:
+            from genie_tpu_torch.setup.fdsn import download_stations
+            sta_lla, sta_names = download_stations(
+                cfg.region.lat_range, cfg.region.lon_range, **fdsn)
+        elif stations_txt is not None:
+            sta_lla, sta_names = read_stations_txt(stations_txt)
+        else:
+            raise ValueError("provide sta_lla arrays, a stations_txt path, "
+                             "or fdsn=dict(...) query parameters (obspy)")
 
     rbest, mn = fit_projection(cfg.region.center,
                                spherical=cfg.region.use_spherical)

@@ -12,7 +12,9 @@ turn FMM tables into a PINN artifact (:63-191): :func:`pinn_sample_bank`,
 :func:`pinn_velocity_r2`, around ``models.travel_time_pinn.train_pinn``
 and ``io.save_pinn``; and the objective of ``scripts/nc_optimize_data.py``
 (:func:`optimize_data_objective`, :func:`synthetic_pick_statistics`).
-``train`` has no wandb hook.
+``process_day`` reads the picks and writes the catalog around
+:func:`process_picks`, its device part (``chip_smoke.py`` calls that with
+the picks in memory); ``train`` has the JAX package's optional wandb hook.
 """
 
 from __future__ import annotations
@@ -428,7 +430,7 @@ def restart_from(path, state: TrainState) -> TrainState:
 
 def train(cfg: Config, ctx: DomainContext, trv, out_dir, n_steps=None,
           log_every: int = 20, seed: int = 0, restart=False,
-          profile_at: int | None = None, mesh=None):
+          profile_at: int | None = None, mesh=None, use_wandb: bool = False):
     """Training loop on the context's device: a ``Detector`` with
     ``cfg.model``'s options (``use_absolute_pos``,
     ``use_updated_model_definition``, ``normalize_readin``), flax-default
@@ -451,6 +453,11 @@ def train(cfg: Config, ctx: DomainContext, trv, out_dir, n_steps=None,
     (``trainer.make_train_step``); rank 0 alone logs, checkpoints and writes
     the trace.
 
+    ``use_wandb``: stream the scalar metrics of every ``log_every``-th step
+    to ``wandb.init(project=f"genie_tpu_{region}")`` (the reference's
+    optional hook, ``train_GENIE_model.py:41``, as the JAX ``train`` does);
+    where wandb is not installed, training runs without it.
+
     Returns ``(model, state, history)``; ``history`` holds, per step, the
     metrics as floats and numpy arrays and the step's stage seconds."""
     from genie_tpu_torch.io import save_checkpoint
@@ -459,6 +466,14 @@ def train(cfg: Config, ctx: DomainContext, trv, out_dir, n_steps=None,
                                                step_seed)
 
     lead = mesh is None or mesh.rank == 0
+    wandb = None
+    if use_wandb and lead:
+        try:
+            import wandb
+        except ImportError:    # the reference's logger is optional
+            pass
+        else:
+            wandb.init(project=f"genie_tpu_{cfg.region.name}")
 
     dev = ctx.sta_cart.device
     out_dir = Path(out_dir)
@@ -500,6 +515,8 @@ def train(cfg: Config, ctx: DomainContext, trv, out_dir, n_steps=None,
         else:
             state, metrics = step_fn(state, gen)
         history.append((metrics, dict(step_fn.stage_seconds)))
+        if wandb is not None and i % log_every == 0:
+            wandb.log({k: float(v) for k, v in metrics.items() if v.dim() == 0}, step=i)
         if lead and (i % log_every == 0 or i == n_steps - 1):
             trgts = metrics["trgts"].cpu().numpy().round(2)
             preds = metrics["preds"].cpu().numpy().round(2)
@@ -521,6 +538,21 @@ def train(cfg: Config, ctx: DomainContext, trv, out_dir, n_steps=None,
     return model, state, history
 
 
+def process_picks(cfg: Config, ctx: DomainContext, trv, model, pick_t, pick_sta,
+                  pick_phase, pick_amp=None, t_start=0.0, t_end=86400.0,
+                  mag_model=None, device=None):
+    """The device part of :func:`process_day`: one span of picks (arrays, as
+    ``io.load_picks`` returns them) through ``InferencePipeline.process`` on
+    ``device`` (default ``cuda``); returns the catalog events."""
+    from genie_tpu_torch.infer.pipeline import InferencePipeline
+
+    pipe = InferencePipeline(model, cfg, ctx, trv.from_cart, mag_model=mag_model,
+                             device=device)
+    return pipe.process(np.asarray(pick_t, np.float32), pick_sta,
+                        np.asarray(pick_phase, np.float32), t_start, t_end,
+                        pick_amp=pick_amp)
+
+
 def process_day(cfg: Config, ctx: DomainContext, trv, model, pick_file,
                 out_file, t_start=0.0, t_end=86400.0, mag_model=None,
                 device=None):
@@ -529,13 +561,10 @@ def process_day(cfg: Config, ctx: DomainContext, trv, model, pick_file,
     ``mag_model`` (``params.load_magnitude_model``) the events get
     magnitudes from the pick file's amplitudes, as ``process`` does when
     given ``pick_amp``."""
-    from genie_tpu_torch.infer.pipeline import InferencePipeline
     from genie_tpu_torch.io import load_picks, save_catalog
 
     t, sta, phase, amp = load_picks(pick_file)
-    pipe = InferencePipeline(model, cfg, ctx, trv.from_cart, mag_model=mag_model,
-                             device=device)
-    events = pipe.process(t.astype(np.float32), sta, phase.astype(np.float32),
-                          t_start, t_end, pick_amp=amp)
+    events = process_picks(cfg, ctx, trv, model, t, sta, phase, amp, t_start, t_end,
+                           mag_model=mag_model, device=device)
     save_catalog(out_file, events, pick_t=t, pick_sta=sta)
     return events

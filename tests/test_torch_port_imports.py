@@ -1,7 +1,9 @@
-"""The PyTorch port stands alone: no JAX, flax, optax or genie_tpu module is
-imported by any genie_tpu_torch module, nothing needs h5py at import (the
-card's machine has none) nor matplotlib (``viz`` imports it inside its
-functions), entry points do not silently run on the CPU, and
+"""The PyTorch port stands alone: no JAX, flax, optax or genie_tpu module,
+nor the repo's JAX commands (``scripts/``, ``examples/``), is imported by
+any genie_tpu_torch module, nothing needs h5py, obspy or wandb at import
+(the card's machine has none of them) nor matplotlib (``viz`` imports it
+inside its functions), entry points and commands do not silently run on
+the CPU, every command's ``--help`` runs without a GPU, and
 options the port does not carry raise (the detector and pipeline options
 it now carries are taken)."""
 
@@ -19,7 +21,8 @@ ROOT = Path(__file__).resolve().parent.parent
 
 _IMPORT_ALL = r"""
 import importlib, json, pkgutil, sys
-sys.modules["h5py"] = None      # importing h5py now raises ImportError
+for absent in ("h5py", "obspy", "wandb"):
+    sys.modules[absent] = None      # importing it now raises ImportError
 import genie_tpu_torch
 names = ["genie_tpu_torch"]
 for m in pkgutil.walk_packages(genie_tpu_torch.__path__, "genie_tpu_torch."):
@@ -34,7 +37,8 @@ load_pinn("projects/NC_EHZ/Grids/pinn_nc.pkl", device="cpu")
 load_magnitude_model("projects/NC_EHZ/run6/mag_model_nc.pkl", device="cpu")
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "genie_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "genie_tpu",
+                                    "scripts", "examples"))
 print(json.dumps({"modules": names, "bad": bad,
                   "matplotlib": "matplotlib" in sys.modules}))
 """
@@ -65,20 +69,59 @@ def test_port_imports_no_jax_flax_optax_or_genie_tpu():
                 "genie_tpu_torch.train.bayes_opt", "genie_tpu_torch.viz",
                 "genie_tpu_torch.parallel", "genie_tpu_torch.parallel.mesh",
                 "genie_tpu_torch.parallel.product_shard",
-                "genie_tpu_torch.parallel.sharded_detector"):
+                "genie_tpu_torch.parallel.sharded_detector",
+                "genie_tpu_torch.setup.fdsn", *COMMANDS):
         assert mod in res["modules"]
+
+
+# the port's commands and example twins, with the least arguments each parses
+COMMANDS = {
+    "genie_tpu_torch.scripts.init_project": ["proj"],
+    "genie_tpu_torch.scripts.calculate_travel_times": ["proj", "build"],
+    "genie_tpu_torch.scripts.train_model": ["proj"],
+    "genie_tpu_torch.scripts.process_continuous_days": ["proj", "picks.npz"],
+    "genie_tpu_torch.scripts.calibrate": ["proj", "catalog.hdf5", "ref.npz"],
+    "genie_tpu_torch.scripts.relocate": ["proj", "catalog.hdf5"],
+    "genie_tpu_torch.examples.quickstart_detection": [],
+    "genie_tpu_torch.examples.quickstart_relocation": [],
+}
+
+
+@pytest.mark.parametrize("module", sorted(COMMANDS))
+def test_command_help_runs_without_a_gpu(module):
+    """``python -m <command> --help`` in a process that sees no GPU."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-m", module, "--help"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("usage:") and "--device" in out.stdout
+
+
+@pytest.mark.parametrize("module", sorted(COMMANDS))
+def test_command_without_device_raises_when_no_cuda(module, monkeypatch, tmp_path):
+    """Without ``--device cpu`` a command raises ``resolve_device``'s error
+    where there is no GPU, before it reads a file."""
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        importlib.import_module(module).main(COMMANDS[module])
+    assert list(tmp_path.iterdir()) == []
 
 
 def test_port_sources_do_not_name_jax():
     """Belt and braces over the runtime check: no import line of the port
-    or of chip_smoke.py names a JAX-side package."""
+    or of chip_smoke.py names a JAX-side package or the repo's JAX
+    commands (``scripts``, ``examples``)."""
     files = sorted((ROOT / "genie_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     for f in files:
         for line in f.read_text().splitlines():
             s = line.strip()
             if s.startswith(("import ", "from ")):
                 mod = s.split()[1].split(".")[0]
-                assert mod not in ("jax", "jaxlib", "flax", "optax", "genie_tpu"), (f, s)
+                assert mod not in ("jax", "jaxlib", "flax", "optax", "genie_tpu",
+                                   "scripts", "examples"), (f, s)
 
 
 def _tiny_ctx(cfg):
