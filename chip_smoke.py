@@ -93,7 +93,8 @@ Phases (any failure exits non-zero):
      which differs from the card's by up to ~5e-5 s, is compared too and
      printed as the witness of that difference); then ``train_graphdd``
      for 3000 steps (a 50-step probe cuts them to the largest multiple of
-     500, at least 1000, that fits 100 s, and prints the cut),
+     250, at least ``RELOCATE_MIN_STEPS``, that fits ``RELOCATE_BUDGET_S``,
+     and prints the cut),
      ``relocate`` of every graph averaged per source: the median 3-D error
      of the relocated sources must fall under 0.7 × their initial median.
      Seconds per step, peak memory and one profiled step;
@@ -116,9 +117,8 @@ Phases (any failure exits non-zero):
      (batch 16,384, 30,000 + 2,048 samples per station, one held-out
      station per 20, lr 1e-3 cosine over 40,000 steps to 0.02, clip 1.0),
      cut by a 50-step probe to the largest multiple of 500 steps (at least
-     1000) that fits 30 s (60 s before the [workflow] phase joined the
-     script): every loss finite and the data term of the last
-     100 steps under half its first value; val / cross-val |Δt|, velocity
+     ``PINN_MIN_STEPS``) that fits ``PINN_BUDGET_S``: every loss finite and
+     the data term of the last 100 steps under half its first value; val / cross-val |Δt|, velocity
      R², ms per step, peak memory and a profiled step; the artifact saved
      to the project's ``Grids/``, read back by ``make_trv`` (times within
      1e-6 s of the trained model's) and ``domain_from_project`` (5 × 500 ×
@@ -190,13 +190,14 @@ Phases (any failure exits non-zero):
      ``config.yaml`` and the phase-3 stations. A stations.txt and a
      picks.txt of six planted events (timed by the production PINN, with
      amplitudes) plus 1 false pick/s; ``init_project`` as a process of its
-     own (the files exist; the converted picks equal the written ones);
+     own (``--grid-steps 200``; the files exist; the converted picks equal
+     the written ones);
      ``calculate_travel_times build`` as a job array of 8 processes
      (``--job j --n-jobs 374`` for every 47th station, the stations
      ``--job 0 --n-jobs 47`` builds), one table bit-equal to
      ``build_fmm_tables`` in this process; ``calculate_travel_times train
-     --steps 350`` (the loss falls; ``load_pinn`` reads the pickle); the
-     production PINN then replaces that 350-step one in the project (the
+     --steps 100`` (the loss falls; ``load_pinn`` reads the pickle); the
+     production PINN then replaces that 100-step one in the project (the
      picks were timed by it); ``train_model --restart --steps 20002`` from
      run6's pickle as ``ckpt.pkl`` (two finite losses, step and Adam count
      20002). Then in this process, on the catalog in memory (no h5py here):
@@ -206,9 +207,47 @@ Phases (any failure exits non-zero):
      of ``InferencePipeline.process`` on the same inputs); ``calibrate``'s
      statistics against the planted events (all matched) and its
      correction fit on homogeneous times (the residual falls);
-     ``relocate``'s graphs (20 of up to 32) and 300 GraphDD steps (the
-     arrays of the JAX command's shapes, finite). One line per command with
-     its wall seconds and peak device memory.
+     ``relocate``'s graphs (20 of up to 32) and 100 GraphDD steps (the
+     arrays of the JAX command's shapes, finite). One line per command with its wall seconds
+     and peak device memory.
+ 16. ``[evaluate]`` (run after phase 12; ``evaluate_phase``):
+     ``scripts/eval_synthetic.py``'s protocol at its defaults through
+     ``genie_tpu_torch.scripts.eval_synthetic`` (32 stations, 2 grids × 200
+     sources, batch 8, threshold 0.3, an 1800 s evaluation timeline). First
+     the kernel's three round forms and their edge forms at the shapes the
+     path launches (32 stations, k = 8; 1 window × 200 sources per training
+     forward, 16 × 200 per sweep batch) against the plain version (≤ 1e-4)
+     and the ``FusedRound`` backward at the training shape against autograd
+     (≤ 1e-4 × max |grad|); then ``evaluate`` trains
+     ``Detector(src_chunk=16)`` from flax-default weights for 500 steps cut
+     at ``EVAL_BUDGET_S`` (the cut printed), processes the timeline and
+     scores it with the bipartite matcher. Gates: at least
+     ``EVAL_MIN_STEPS`` steps; the first 10 training batches, replayed from
+     the training generator (batch 0 at the initial weights gives step 0's
+     loss within 1e-5 relative), have a lower mean loss under the trained
+     weights than when they were trained on (the mean of the last 10 steps
+     against the first 10 is printed: a step's loss grows with its batch's
+     planted events); 5 held-out batches from another generator have a
+     lower loss under the trained weights than under the initial ones;
+     every loss finite, kernel launches in training and in processing (each
+     count set to 0 just before), the JSON keys of the JAX script, and
+     ``save_params``' pickle with run6's flax tree names and shapes. The
+     trained detector finds nothing at 0.3 after so few steps, so run6's
+     weights (the same architecture) then process the same timeline: a
+     non-empty, finite catalog and kernel launches after the sweep
+     (refinement, association);
+ 17. ``[scaling]`` (run after phase 14; ``scaling_phase``):
+     ``measure_scaling`` at its defaults (8192 clustered sources × 128
+     stations × 30 channels, k 15) with 8 gloo ranks on the card: the
+     sharded source mean with and without the halo exchange and the dense
+     one, timed with CUDA events; the plan's halo rows (graph built on the
+     CPU) must be the JAX run's 2673 valid and 5032 moved
+     (``projects/NC_EHZ/measured_scaling_virtual8.json``; the numbers from
+     the graph built on the card printed beside) and the sharded mean
+     within 1e-5 of the dense; then ``scaling_model --halo-sweep`` at its
+     defaults with the card's constants (the fitted slope, the projected
+     efficiency with f32 and bf16 wires). ``--shard-nccl`` runs the
+     measurement again over NCCL, one rank per card.
 
 It prints per-stage times, event counts, launches, peak memory, the card's
 name and power limit, a JSON line describing every kernel, and as its last
@@ -886,13 +925,15 @@ def run6_train_config():
     return cfg
 
 
-def check_backward(sta_nbr, sta_w, seed: int, dev="cuda", e: int = 0):
+def check_backward(sta_nbr, sta_w, seed: int, dev="cuda", e: int = 0,
+                   lead=(16, 500), tag="train-check"):
     """(i) ``FusedRound``'s backward on the card against autograd through
     ``fused_round_plain`` on the card, for the three round forms of
-    ``check_kernel`` at 8000 × 374 (as 16 windows × 500 sources), or their
-    edge forms with ``e = 4`` (W1's and W2's edge columns take gradients,
-    the tables none): max |Δgrad| of each input ≤ TOL × its max |grad|.
-    Returns per-form records with both backward times."""
+    ``check_kernel`` at ``lead`` windows × sources (16 × 500 = 8000 rows at
+    run6) × the stations of ``sta_nbr``, or their edge forms with ``e = 4``
+    (W1's and W2's edge columns take gradients, the tables none): max
+    |Δgrad| of each input ≤ TOL × its max |grad|. Returns per-form records
+    with both backward times."""
     import torch
 
     from genie_tpu_torch.ops.fused_round import FusedRound, fused_round_plain
@@ -900,7 +941,6 @@ def check_backward(sta_nbr, sta_w, seed: int, dev="cuda", e: int = 0):
     dev = torch.device(dev)
     gen = torch.Generator(device=dev).manual_seed(seed + 5 + e)
     n_sta = int(sta_nbr.shape[0])
-    lead = (16, 500)
 
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=dev) * scale
@@ -945,7 +985,7 @@ def check_backward(sta_nbr, sta_w, seed: int, dev="cuda", e: int = 0):
             out_p, leaves, g_out, retain_graph=True), reps=3, warmup=1)
         rec = dict(form=form, rows=lead[0] * lead[1], n_sta=n_sta, max_rel_grad_err=worst,
                    rel_grad_err=rel, backward_ms=bwd_ms, plain_backward_ms=bwd_plain_ms)
-        print(f"[train-check] backward {json.dumps(rec)}", flush=True)
+        print(f"[{tag}] backward {json.dumps(rec)}", flush=True)
         records.append(rec)
         del out_k, out_p, x, z, agg_src, mask, args, leaves, g_out
         torch.cuda.empty_cache()
@@ -1483,13 +1523,18 @@ def calibrate_phase(ctx, pinn, seed: int, dev="cuda"):
 
 
 # -- phase 10 --------------------------------------------------------------
-def relocate_phase(ctx, trv_h, pinn, seed: int, dev="cuda", full_steps: int = 3000,
-                   budget_s: float = 100.0):
+# train_graphdd's 3000 steps are cut to fit this budget, down to this floor
+RELOCATE_BUDGET_S = 50.0
+RELOCATE_MIN_STEPS = 750
+
+
+def relocate_phase(ctx, trv_h, pinn, seed: int, dev="cuda", full_steps: int = 3000):
     """Phase 10, ``[relocate]``: GraphDD at the sizes of run6's relocation
     artifact: the loss and gradients of one graph card vs CPU at
     flax-default weights, ``train_graphdd`` (cut to the largest multiple of
-    500 steps, at least 1000, that fits ``budget_s`` when 3000 do not),
-    ``relocate`` of every graph averaged per source, one profiled step."""
+    250 steps, at least ``RELOCATE_MIN_STEPS``, that fits
+    ``RELOCATE_BUDGET_S`` when 3000 do not), ``relocate`` of every graph
+    averaged per source, one profiled step."""
     import torch
 
     from genie_tpu_torch.models.init import init_graphdd
@@ -1591,8 +1636,8 @@ def relocate_phase(ctx, trv_h, pinn, seed: int, dev="cuda", full_steps: int = 30
     _, probe_s, _ = _timed(lambda: train(50, seed + 1))
     per_step = (probe_s - first_s) / 49
     n_steps = full_steps
-    if per_step * full_steps > budget_s:
-        n_steps = max(1000, int(budget_s / per_step) // 500 * 500)
+    if per_step * full_steps > RELOCATE_BUDGET_S:
+        n_steps = max(RELOCATE_MIN_STEPS, int(RELOCATE_BUDGET_S / per_step) // 250 * 250)
         print(f"[relocate] reduced: steps {full_steps} -> {n_steps} "
               f"(probe {per_step * 1e3:.1f} ms/step)", flush=True)
     (model, loss), secs, peak = _timed(lambda: train(n_steps, seed))
@@ -1664,6 +1709,9 @@ def relocate_phase(ctx, trv_h, pinn, seed: int, dev="cuda", full_steps: int = 30
 PINN_CENTER = (761.53, 2802.07, -24632.12)   # Grids/pinn_nc.pkl's box
 PINN_X_SCALE = 504000.0
 PINN_SHAPE = (239, 336, 34)
+# nc_pinn.py's 40,000 steps are cut to fit this budget, down to this floor
+PINN_BUDGET_S = 30.0
+PINN_MIN_STEPS = 1000
 
 
 def _fmm_shard(args):
@@ -1678,13 +1726,12 @@ def _fmm_shard(args):
 
 def project_phase(pinn, seed: int, dev="cuda", n_sta: int = 374, n_fmm: int = 8,
                   n_steps_grids: int = 800, batch: int = 16384, per_sta: int = 30000,
-                  full_steps: int = 40000, budget_s: float = 60.0, n_check: int = 4096,
-                  workers: int = 8):
+                  full_steps: int = 40000, n_check: int = 4096, workers: int = 8):
     """Phase 11, ``[project]``: a project built from its files at run6
     width: ``init_project`` from a stations.txt, the FMM box against
     ``pinn_nc.pkl``'s scales, ``build_fmm_tables`` over a process pool,
     the production PINN against the fresh tables, the PINN loss card vs
-    CPU, ``nc_pinn.py``'s training loop cut to ``budget_s``, the artifact
+    CPU, ``nc_pinn.py``'s training loop cut to ``PINN_BUDGET_S``, the artifact
     read back by ``make_trv`` and ``domain_from_project``."""
     import multiprocessing
 
@@ -1847,10 +1894,11 @@ def project_phase(pinn, seed: int, dev="cuda", n_sta: int = 374, n_fmm: int = 8,
     _, probe_s, _ = _timed(lambda: train(50, seed + 1))
     per_step = (probe_s - first_s) / 49
     n_steps = full_steps
-    if per_step * full_steps > budget_s:
-        n_steps = max(1000, int(budget_s / per_step) // 500 * 500)
+    if per_step * full_steps > PINN_BUDGET_S:
+        n_steps = max(PINN_MIN_STEPS, int(PINN_BUDGET_S / per_step) // 500 * 500)
         print(f"[project] reduced: PINN steps {full_steps} -> {n_steps} "
-              f"(probe {per_step * 1e3:.2f} ms/step, budget {budget_s:.0f} s)", flush=True)
+              f"(probe {per_step * 1e3:.2f} ms/step, budget {PINN_BUDGET_S:.0f} s)",
+              flush=True)
     (model, hist), train_s, peak = _timed(lambda: train(n_steps, seed))
     hist = {k: v.cpu().numpy() for k, v in hist.items()}
     finite = bool(all(np.isfinite(v).all() for v in hist.values()))
@@ -2446,46 +2494,19 @@ def shard_worker(d, rank: int, world: int, port: int):
         dist.destroy_process_group()
 
 
-def _free_port() -> int:
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def run_shard_group(d: Path, world: int):
-    """Start ``world`` ranks of this script as ``--shard-worker`` processes,
-    wait for all (killing any left at the time limit) and fail unless every
-    one exits 0. Returns every rank's outputs."""
+    """Start ``world`` ranks of this script as ``--shard-worker`` processes
+    (``parallel.launch.run_ranks``: killed at the time limit) and fail
+    unless every one exits 0. Returns every rank's outputs."""
     import torch
 
-    port = _free_port()
-    procs, logs = [], []
+    from genie_tpu_torch.parallel.launch import RankFailed, run_ranks
+
     try:
-        for r in range(world):
-            log = open(d / f"rank_{r}.log", "w")
-            logs.append(log)
-            procs.append(subprocess.Popen(
-                [sys.executable, str(Path(__file__).resolve()), "--shard-worker", str(d),
-                 str(r), str(world), str(port)], cwd=ROOT, stdout=log,
-                stderr=subprocess.STDOUT))
-        deadline = time.time() + SHARD_TIMEOUT_S
-        for p in procs:
-            p.wait(timeout=max(deadline - time.time(), 1.0))
-    except subprocess.TimeoutExpired:
-        pass
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for log in logs:
-            log.close()
-    for r, p in enumerate(procs):
-        if p.returncode != 0:
-            tail = (d / f"rank_{r}.log").read_text()[-4000:]
-            fail(f"[shard] rank {r} of {world} exited {p.returncode}:\n{tail}")
+        run_ranks(lambda r, port: [Path(__file__).resolve(), "--shard-worker", d, r,
+                                   world, port], world, d, SHARD_TIMEOUT_S, cwd=ROOT)
+    except RankFailed as e:
+        fail(f"[shard] {e}")
     return [torch.load(d / f"out_{r}.pt") for r in range(world)]
 
 
@@ -2631,6 +2652,235 @@ def shard_phase(cfg, ctx, trv, x_query, seed: int, card: str, dev="cuda",
     return launches
 
 
+# -- phase 16: [evaluate] ----------------------------------------------------------
+# the JSON keys of scripts/eval_synthetic.py
+EVAL_KEYS = ("steps", "train_s_per_step", "infer_time_s", "n_true", "n_detected",
+             "n_matched", "precision", "recall", "f1", "median_epi_err_m",
+             "median_t_err_s")
+
+
+# evaluate's 500 training steps are cut to this budget; the gates need at
+# least EVAL_MIN_STEPS of them
+EVAL_BUDGET_S = 18.0
+EVAL_MIN_STEPS = 20
+
+
+def _mean_loss(model, cfg, ctx, tt, batches) -> float:
+    import torch
+
+    from genie_tpu_torch.train.trainer import loss_fn
+
+    with torch.no_grad():
+        return float(np.mean([float(loss_fn(model, ctx, cfg, wb, tt.from_cart)[0])
+                              for wb in batches]))
+
+
+def evaluate_phase(seed: int, card: str, dev="cuda"):
+    """Phase 16: ``scripts/eval_synthetic.py``'s protocol at its defaults
+    through ``genie_tpu_torch.scripts.eval_synthetic``: first the kernel's
+    three round forms (and edge forms) at the shapes this path launches (32
+    stations, k = 8; a training forward takes 1 window × 200 sources, a
+    sweep batch 16 × 200) and the ``FusedRound`` backward at the training
+    shape, then ``evaluate`` trains from flax-default weights (cut at
+    ``EVAL_BUDGET_S``), processes an 1800 s timeline and scores it. Gates:
+    at least ``EVAL_MIN_STEPS`` steps; the first 10 training batches
+    (replayed from the training generator: batch 0 at the initial weights
+    must give step 0's loss) have a lower mean loss under the trained
+    weights than the first 10 steps recorded; 5 held-out batches from
+    another generator have a lower loss under the trained weights than
+    under the initial ones; every loss finite; both paths launch the
+    kernel; the JSON has the JAX script's keys; ``save_params``' pickle
+    has run6's flax tree names and shapes. A step's loss grows with the
+    planted events in its batch, so the mean of the last 10 steps against
+    the first 10 (printed) measures the batches as much as the weights.
+    The briefly trained detector finds nothing at the script's threshold,
+    so run6's trained weights (the same architecture) then process the same
+    timeline: the catalog must be non-empty and finite, and the stages after
+    the sweep (refinement, association) must launch the kernel. Returns the
+    launches per path and the check records."""
+    import torch
+
+    from genie_tpu_torch.graphs.build import build_station_graph
+    from genie_tpu_torch.infer.pipeline import InferencePipeline
+    from genie_tpu_torch.models.detector import Detector
+    from genie_tpu_torch.ops.fused_round import fused_round
+    from genie_tpu_torch.ops.segment import aggregation_weights
+    from genie_tpu_torch.params import flatten_tree, load_flax_params
+    from genie_tpu_torch.scripts import eval_synthetic
+    from genie_tpu_torch.train.trainer import generate_batch, init_train_state
+
+    t_phase = time.time()
+    cfg, ctx, tt = eval_synthetic.build(32, 200, 8, 0.3, dev)
+    nbr, valid = build_station_graph(ctx.sta_cart, cfg.graph.k_sta_edges)
+    sta_nbr = nbr.to(torch.int32).contiguous()
+    sta_w = aggregation_weights(nbr, valid).contiguous()
+    records = []
+    for n_win in (1, 16):
+        r0, r4 = check_kernel(sta_nbr, sta_w, seed + 150, n_win=n_win, n_src=200,
+                              dense_entry=False)
+        records += r0 + r4
+    bwd = check_backward(sta_nbr, sta_w, seed + 150, dev, lead=(1, 200), tag="evaluate")
+    torch.cuda.empty_cache()
+    checks_s = time.time() - t_phase
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    steps = 500         # the JAX script's default
+    out, info = eval_synthetic.evaluate(cfg, ctx, tt, steps, dev, budget_s=EVAL_BUDGET_S)
+    torch.cuda.synchronize()
+    evaluate_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n, losses = out["steps"], np.asarray(info["losses"])
+    print(f"[evaluate] reduced: steps {steps} -> {n} (training cut at "
+          f"{EVAL_BUDGET_S:.0f} s)", flush=True)
+    print(f"[evaluate] {json.dumps(out)}", flush=True)
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    # the first 10 batches again: the training generator replayed
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model0 = init_train_state(Detector(src_chunk=16).to(dev), cfg, gen).model
+    batches = [generate_batch(gen, cfg, ctx, tt.from_cart) for _ in range(10)]
+    replay0 = _mean_loss(model0, cfg, ctx, tt, batches[:1])
+    trained = _mean_loss(info["model"], cfg, ctx, tt, batches)
+    # 5 batches that training never saw
+    gen = torch.Generator(device=dev).manual_seed(seed + 152)
+    held = [generate_batch(gen, cfg, ctx, tt.from_cart) for _ in range(5)]
+    held_init = _mean_loss(model0, cfg, ctx, tt, held)
+    held_trained = _mean_loss(info["model"], cfg, ctx, tt, held)
+    del model0, batches, held
+    rec = {"card": card, "checks_s": checks_s, "evaluate_s": evaluate_s,
+           "steps": n, "s_per_step": out["train_s_per_step"],
+           "loss_first10": first, "loss_last10": last,
+           "loss_first10_batches_trained": trained, "loss_step0_replayed": replay0,
+           "loss_heldout_initial": held_init, "loss_heldout_trained": held_trained,
+           "launches_train": info["launches_train"],
+           "launches_per_step": info["launches_train"] / max(n, 1),
+           "launches_process": info["launches_process"], "events": len(info["events"]),
+           "infer_time_s": out["infer_time_s"], "peak_gib": peak / 2**30}
+    print(f"[evaluate] {json.dumps(rec)}", flush=True)
+    if not np.isfinite(losses).all():
+        fail(f"[evaluate] a training loss is not finite: {losses.tolist()}")
+    if n < EVAL_MIN_STEPS:
+        fail(f"[evaluate] {n} training steps in {EVAL_BUDGET_S} s, under {EVAL_MIN_STEPS}")
+    if not abs(replay0 - losses[0]) <= 1e-5 * abs(losses[0]):
+        fail(f"[evaluate] the replayed batch 0 gives {replay0}, step 0 gave {losses[0]}")
+    if not trained < first:
+        fail(f"[evaluate] the first 10 batches' loss under the trained weights "
+             f"{trained} is not under their loss in training {first} ({n} steps)")
+    if not held_trained < held_init:
+        fail(f"[evaluate] the held-out batches' loss under the trained weights "
+             f"{held_trained} is not under their loss at the initial weights {held_init}")
+    if info["launches_train"] <= 0 or info["launches_process"] <= 0:
+        fail(f"[evaluate] kernel launches: training {info['launches_train']}, "
+             f"processing {info['launches_process']}")
+    if tuple(out) != EVAL_KEYS:
+        fail(f"[evaluate] JSON keys {list(out)} are not the JAX script's {EVAL_KEYS}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "params.pkl"
+        eval_synthetic.save_params(info["model"], path)
+        saved = {k: v.shape for k, v in flatten_tree(load_flax_params(path)).items()}
+    run6 = {k: v.shape for k, v in flatten_tree(load_flax_params(RUN6 / "params.pkl"))
+            .items()}
+    if saved != run6:
+        fail(f"[evaluate] saved params differ from run6's tree: "
+             f"{sorted(set(saved) ^ set(run6))}")
+    print(f"[evaluate] save_params: {len(saved)} leaves, run6's flax names and shapes",
+          flush=True)
+
+    # the stages after the sweep at 32 stations: the briefly trained detector
+    # finds nothing, so run6's trained weights (the same architecture) process
+    # the same timeline at the script's threshold
+    pick_t, pick_sta, pick_ph = info["picks"]
+    pipe = InferencePipeline(load_model(cfg), cfg, ctx, tt.from_cart, device=dev)
+    t1 = time.time()
+    fused_round.launches = 0
+    times_s, series = pipe.detection_sweep(pick_t, pick_sta, pick_ph, 0.0, 1800.0)
+    launches_sweep = fused_round.launches
+    fused_round.launches = 0
+    events = pipe.process_from_sweep(times_s, series, pick_t, pick_sta, pick_ph)
+    launches_after = fused_round.launches
+    ev4 = np.array([[*ev.pos_cart, ev.time] for ev in events]).reshape(-1, 4)
+    post = {"seconds": time.time() - t1, "series_max": float(np.max(series)),
+            "launches_sweep": launches_sweep, "launches_after_sweep": launches_after,
+            "stage_seconds": pipe.stage_seconds,
+            **eval_synthetic.score(events, info["true_srcs"])}
+    print(f"[evaluate] run6 weights {json.dumps(post)}", flush=True)
+    if not events or not np.isfinite(ev4).all() or launches_after <= 0:
+        fail(f"[evaluate] run6's weights gave {len(events)} events (finite: "
+             f"{bool(np.isfinite(ev4).all())}) with {launches_after} launches after "
+             f"the sweep")
+    del pipe, series
+
+    # one more training step of the trained weights under the profiler
+    from torch.profiler import ProfilerActivity, profile
+
+    from genie_tpu_torch.train.trainer import TrainState, make_optimizer, make_train_step
+
+    model = info["model"].train()
+    state = TrainState(model, make_optimizer(model, cfg), 0)
+    step_fn = make_train_step(cfg, ctx, tt.from_cart)
+    gen = torch.Generator(device=dev).manual_seed(seed + 151)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.time()
+        step_fn(state, gen)
+        torch.cuda.synchronize()
+        wall_p = time.time() - t1
+    summarize_profile(prof, wall_p, "profile evaluate train", ranges=(
+        "generate", "forward_backward", "optimizer", "FusedRound", "FusedRoundBackward"))
+    print(f"[evaluate] phase {time.time() - t_phase:.1f} s", flush=True)
+    return ({"evaluate_train": info["launches_train"],
+             "evaluate_process": info["launches_process"],
+             "evaluate_run6_process": launches_sweep + launches_after}, records, bwd)
+
+
+# -- phase 17: [scaling] -----------------------------------------------------------
+MEASURED_SCALING = ROOT / "projects" / "NC_EHZ" / "measured_scaling_virtual8.json"
+
+
+def scaling_phase(card: str, dev="cuda", backend: str = "gloo", ranks: int = 8,
+                  sweep: bool = True):
+    """Phase 17: ``measure_scaling`` at its defaults (8192 sources × 128
+    stations × 30 channels, k 15) with ``ranks`` ranks (gloo: all on the
+    card; nccl: one per card): with 8 ranks the halo rows of the plan (graph
+    on the CPU) must be the JAX run's 2673 valid and 5032 moved
+    (``projects/NC_EHZ/measured_scaling_virtual8.json``); the plan from the
+    graph built on the card is printed beside; the sharded mean must equal
+    the dense one within 1e-5. Then (``sweep``) ``scaling_model
+    --halo-sweep`` at its defaults with the card's constants."""
+    import torch
+
+    from genie_tpu_torch.scripts import measure_scaling, scaling_model
+
+    t_phase = time.time()
+    try:
+        res = measure_scaling.measure(ranks=ranks, backend=backend, device=dev)
+    except RuntimeError as e:
+        fail(f"[scaling] {e}")
+    print(f"[scaling] measure_scaling {json.dumps({**res, 'card': card})}", flush=True)
+    on_card = measure_scaling.partition_stats(res["n_src"], res["k_src"], ranks, dev)
+    print(f"[scaling] plan from the graph built on the card: {json.dumps(on_card)}",
+          flush=True)
+    if ranks == 8:
+        want = json.loads(MEASURED_SCALING.read_text())
+        for k in ("halo_rows_exchanged", "halo_rows_moved_padded"):
+            if res[k] != want[k]:
+                fail(f"[scaling] {k} {res[k]}, the JAX run's {want[k]}")
+    if not res["max_abs_diff_vs_dense"] <= 1e-5:
+        fail(f"[scaling] sharded vs dense {res['max_abs_diff_vs_dense']} > 1e-5")
+    out = {"measure": res}
+    if sweep:
+        torch.cuda.empty_cache()
+        t0 = time.time()
+        torch.cuda.reset_peak_memory_stats()
+        sw = scaling_model.main(["--halo-sweep"])
+        rec = {k: v for k, v in sw.items() if k != "points"}
+        rec.update(points=[list(p) for p in sw["points"]], seconds=time.time() - t0,
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30, card=card)
+        print(f"[scaling] scaling_model --halo-sweep {json.dumps(rec)}", flush=True)
+        out["sweep"] = rec
+    print(f"[scaling] phase {time.time() - t_phase:.1f} s", flush=True)
+    return out
+
+
 # -- phase 15 --------------------------------------------------------------
 # Runs one command module as ``python -m`` does (runpy, as __main__), then
 # prints the process's peak device memory.
@@ -2663,8 +2913,8 @@ def finish_command(proc, label: str, timeout: float = 600.0):
     return out, json.loads(out.rsplit("[peak] ", 1)[1])
 
 
-def workflow_phase(ctx, pinn, seed: int, dev="cuda", config=None, grid_steps: int = 800,
-                   fmm_every: int = 47, pinn_steps: int = 350, reloc_steps: int = 300):
+def workflow_phase(ctx, pinn, seed: int, dev="cuda", config=None, grid_steps: int = 200,
+                   fmm_every: int = 47, pinn_steps: int = 100, reloc_steps: int = 100):
     """Phase 15, ``[workflow]``: the README's commands
     (``genie_tpu_torch.scripts``) in a project directory under
     ``chip_scratch/``, handing over through its files: ``init_project``,
@@ -2904,7 +3154,8 @@ def main():
                          "this script itself)")
     ap.add_argument("--shard-nccl", action="store_true",
                     help="on a machine with several cards: build the kernel and "
-                         "run only [shard], over NCCL with one rank per card")
+                         "run only [shard] and [scaling]'s measure_scaling, over "
+                         "NCCL with one rank per card")
     args = ap.parse_args()
 
     import torch
@@ -2927,7 +3178,16 @@ def main():
     from genie_tpu_torch.ops.segment import aggregation_weights
 
     build_kernels()
+    t_mark = [time.time()]
 
+    def mark(name):
+        """Print the seconds since the previous mark, for the time budget."""
+        now = time.time()
+        print(f"[time] {name} {now - t_mark[0]:.1f} s (script {now - t_all:.1f} s)",
+              flush=True)
+        t_mark[0] = now
+
+    mark("build")
     cfg = run6_config()
     t0 = time.time()
     ctx, trv = build_domain(cfg, args.seed)
@@ -2936,8 +3196,10 @@ def main():
         if n < 2:
             fail(f"--shard-nccl needs several cards, found {n}")
         x_query = np.load(GRIDS / "x_query_10000.npy").astype(np.float32)
-        launches_s = shard_phase(cfg, ctx, trv, x_query, args.seed,
-                                 "; ".join(nvidia_smi()), backend="nccl", ranks=n)
+        cards = "; ".join(nvidia_smi())
+        launches_s = shard_phase(cfg, ctx, trv, x_query, args.seed, cards,
+                                 backend="nccl", ranks=n)
+        scaling_phase(cards, backend="nccl", ranks=n, sweep=False)
         print(json.dumps({"shard_launches_per_rank": launches_s}))
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": n}}))
@@ -2954,6 +3216,7 @@ def main():
     sta_w = aggregation_weights(pipe.sta_nbr, pipe.sta_nbr_valid)
     records, edge_records = check_kernel(sta_nbr, sta_w, args.seed)
     large_records = check_kernel_large(cfg, args.seed)
+    mark("kernel")
 
     picks = make_picks(ctx, trv, args.seed)
     print(f"[picks] {len(picks[0])} picks over 600 s, {len(picks[3])} planted "
@@ -3000,9 +3263,14 @@ def main():
     profile_request(pipe, picks)
     del pipe
     torch.cuda.empty_cache()
+    mark("homogeneous requests")
     card = nvidia_smi()[0]
     launches_s = shard_phase(cfg, ctx, trv, x_query, args.seed, card)
     torch.cuda.empty_cache()
+    mark("shard")
+    scaling_phase(card)
+    torch.cuda.empty_cache()
+    mark("scaling")
 
     pinn = check_pinn(ctx, args.seed)
     pipe_p, ctx_p, trv_p, mag = build_production(cfg, ctx, pinn, model, x_query)
@@ -3011,23 +3279,34 @@ def main():
     launches_x = extras_phase(pipe_p, cfg, ctx_p, trv_p, picks_p, args.seed, card)
     del pipe_p, ctx_p, trv_p, mag
     torch.cuda.empty_cache()
+    mark("pinn, production, locate, extras")
 
     bwd_records = check_backward(sta_nbr, sta_w, args.seed)
     launches_t = train_phase(run6_train_config(), ctx, pinn, args.seed, card)
     torch.cuda.empty_cache()
+    mark("train")
     bwd_edge, launches_o = options_phase(cfg, ctx, trv, x_query, picks, sta_nbr, sta_w,
                                          args.seed, card)
+    torch.cuda.empty_cache()
+    mark("options")
+    launches_e, eval_records, bwd_eval = evaluate_phase(args.seed, card)
+    torch.cuda.empty_cache()
+    mark("evaluate")
     # neither phase runs the detector: its kernel must stay unlaunched
     fused_round.launches = 0
     calibrate_phase(ctx, pinn, args.seed)
+    mark("calibrate")
     relocate_phase(ctx, trv, pinn, args.seed)
     launches_cr = fused_round.launches
     torch.cuda.empty_cache()
+    mark("relocate")
     fused_round.launches = 0
-    project_phase(pinn, args.seed, budget_s=30.0)
+    project_phase(pinn, args.seed)
     print(f"[project] fused_round launches {fused_round.launches} (the path runs no "
           f"detector)", flush=True)
+    mark("project")
     launches_w = workflow_phase(ctx, pinn, args.seed)
+    mark("workflow")
     print(f"[card] {card}")
     print(f"[total] {time.time() - t_all:.1f} s")
 
@@ -3040,20 +3319,23 @@ def main():
         "launches_by_path": {"homogeneous": launches, "production": launches_p,
                              "train": launches_t, "calibrate_and_relocate": launches_cr,
                              "options": launches_o, "extras_trace": launches_x,
-                             "shard_per_rank": launches_s, "workflow_process": launches_w},
+                             "shard_per_rank": launches_s, "workflow_process": launches_w,
+                             **launches_e},
         "max_abs_err": max(r["max_abs_err"] for r in records + edge_records
-                           + large_records),
+                           + large_records + eval_records),
         "max_abs_diff": max(r["max_abs_err"] for r in records + edge_records
-                            + large_records),
+                            + large_records + eval_records),
         "ms": r1["ms"], "plain_ms": r1["plain_ms"], "bound_ms": r1["bound_ms"],
         "bound_by": r1["bound_by"], "library_ms": r1["library_ms"],
         "forms": records,
         "edge_forms": edge_records,
         "large_network_forms": large_records,
+        "eval_forms": eval_records,
         "backward_check": {"route": "pytorch ops (FusedRound.backward)",
-                           "max_rel_grad_err": max(r["max_rel_grad_err"]
-                                                   for r in bwd_records + bwd_edge),
-                           "forms": bwd_records, "edge_forms": bwd_edge},
+                           "max_rel_grad_err": max(r["max_rel_grad_err"] for r in
+                                                   bwd_records + bwd_edge + bwd_eval),
+                           "forms": bwd_records, "edge_forms": bwd_edge,
+                           "eval_forms": bwd_eval},
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -25,55 +25,7 @@ import numpy as np
 import torch
 
 from genie_tpu_torch.scripts import add_device_argument
-
-
-def build(n_sta: int, n_src: int, n_batch: int, thresh: float, device):
-    """The synthetic evaluation domain of ``scripts/eval_synthetic.py``
-    (``build``): its config, ``n_sta`` stations and two grids of ``n_src``
-    nodes drawn from ``np.random.default_rng(0)`` around the default region's
-    centre, homogeneous travel times. Returns (cfg, ctx on ``device``,
-    travel times)."""
-    from genie_tpu_torch.config import Config
-    from genie_tpu_torch.geometry import Projection
-    from genie_tpu_torch.models.travel_time import HomogeneousTravelTime
-    from genie_tpu_torch.train.trainer import build_domain_context
-
-    cfg = Config()
-    cfg.graph.max_sta = n_sta
-    cfg.graph.n_spatial_nodes = n_src
-    cfg.graph.n_grids = 2
-    cfg.graph.max_picks = 256
-    cfg.train.n_batch = n_batch
-    cfg.train.n_spc_query = 1000
-    cfg.train.n_src_query = 64
-    cfg.synth.max_events = 64
-    cfg.synth.n_false_max = 1024
-    cfg.synth.T = 3600.0
-    cfg.synth.max_rate_events = 30.0
-    cfg.synth.min_sta_arrival = 4
-    cfg.synth.min_pick_arrival = 6
-    cfg.synth.dist_range = (15e3, 200e3)
-    cfg.process.thresh = thresh
-    cfg.process.thresh_assoc = thresh
-    cfg.process.min_required_picks = 5
-    cfg.process.min_required_sta = 3
-
-    rng = np.random.default_rng(0)
-    proj = Projection.from_center(cfg.region.center)
-    n_grids = 2
-    sta_cart = rng.uniform(-80e3, 80e3, (n_sta, 3)).astype(np.float32)
-    sta_cart[:, 2] = rng.uniform(-1e3, 1e3, n_sta)
-    sta_lla = np.asarray(proj.to_lla_np(sta_cart), np.float32)
-    grids_cart = rng.uniform(-100e3, 100e3, (n_grids, n_src, 3)).astype(np.float32)
-    grids_cart[:, :, 2] = rng.uniform(-35e3, 0, (n_grids, n_src))
-    grids_lla = np.stack([np.asarray(proj.to_lla_np(g), np.float32) for g in grids_cart])
-    tt = HomogeneousTravelTime(proj)
-    sta = torch.as_tensor(sta_cart, device=device)
-    trv_grids = torch.stack([tt.from_cart(sta, torch.as_tensor(g, device=device))
-                             for g in grids_cart])
-    ctx = build_domain_context(cfg, sta_lla, sta_cart, grids_lla, grids_cart, trv_grids,
-                               device)
-    return cfg, ctx, tt
+from genie_tpu_torch.scripts.eval_synthetic import build
 
 
 def main(argv=None):

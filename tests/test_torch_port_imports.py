@@ -70,6 +70,7 @@ def test_port_imports_no_jax_flax_optax_or_genie_tpu():
                 "genie_tpu_torch.parallel", "genie_tpu_torch.parallel.mesh",
                 "genie_tpu_torch.parallel.product_shard",
                 "genie_tpu_torch.parallel.sharded_detector",
+                "genie_tpu_torch.parallel.launch",
                 "genie_tpu_torch.setup.fdsn", *COMMANDS):
         assert mod in res["modules"]
 
@@ -82,6 +83,9 @@ COMMANDS = {
     "genie_tpu_torch.scripts.process_continuous_days": ["proj", "picks.npz"],
     "genie_tpu_torch.scripts.calibrate": ["proj", "catalog.hdf5", "ref.npz"],
     "genie_tpu_torch.scripts.relocate": ["proj", "catalog.hdf5"],
+    "genie_tpu_torch.scripts.eval_synthetic": [],
+    "genie_tpu_torch.scripts.measure_scaling": [],
+    "genie_tpu_torch.scripts.scaling_model": [],
     "genie_tpu_torch.examples.quickstart_detection": [],
     "genie_tpu_torch.examples.quickstart_relocation": [],
 }
