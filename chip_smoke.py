@@ -235,7 +235,19 @@ Phases (any failure exits non-zero):
      trained detector finds nothing at 0.3 after so few steps, so run6's
      weights (the same architecture) then process the same timeline: a
      non-empty, finite catalog and kernel launches after the sweep
-     (refinement, association);
+     (refinement, association). Last, the port's 3000-step detector
+     (``projects/eval_synthetic/params.pkl``, the recipe at the default
+     seeds) processes JAX's evaluation timeline
+     (``projects/eval_synthetic/timeline_1234.npz``, with JAX's detection
+     query grid) at threshold 0.2 under ``held_process_config`` (no
+     refinement offsets drawn): the catalog must hold JAX's CPU catalog at
+     those weights (``catalog_jax.json``) by ``match_catalog``: the same
+     count and matched-catalog counts, each pair in time order within 1 km
+     and 0.2 s or, holding the same picks, at the same DE objective (the
+     two locators' draws differ; see ``EVAL_COST``), with kernel launches
+     in the sweep and after it. ``--score-eval PARAMS:SEED ...`` scores
+     saved detectors at 0.2 and 0.3 on that timeline and on their own, and
+     stops;
  17. ``[scaling]`` (run after phase 14; ``scaling_phase``):
      ``measure_scaling`` at its defaults (8192 clustered sources × 128
      stations × 30 channels, k 15) with 8 gloo ranks on the card: the
@@ -2665,6 +2677,200 @@ EVAL_BUDGET_S = 18.0
 EVAL_MIN_STEPS = 20
 
 
+# the port's 3000-step detector, JAX's evaluation timeline (PRNGKey(1234),
+# with JAX's detection query grid) and JAX's CPU catalog of it at those
+# weights, threshold 0.2 (tests/test_torch_port_eval_trained.py holds each
+# file to a live JAX draw or run)
+EVAL_DIR = ROOT / "projects" / "eval_synthetic"
+# a pair of catalog events (in time order) matches within EVAL_KM metres and
+# EVAL_SEC seconds; farther apart, it must hold the same picks, the port's DE
+# objective (trimmed mean |residual|, s) at JAX's location must equal JAX's
+# own value there within EVAL_COST, and the port's locator, run again on
+# those picks with EVAL_RERUNS more draws, must reach a minimum no more than
+# EVAL_COST above it. The two packages' locators draw different numbers,
+# and each lands, for some draws, in a shallower local minimum kilometres
+# from the deepest (JAX against itself under other keys does too; see
+# tests/test_torch_port_eval_files.py::test_locators_agree_in_distribution).
+EVAL_KM, EVAL_SEC, EVAL_COST, EVAL_RERUNS = 1e3, 0.2, 1e-3, 8
+
+
+def held_process_config(cfg):
+    """The held catalog's settings: one refinement offset, the candidate
+    itself (``n_rand_query = refine_chunk = 1``), so the refinement draws
+    no random offsets in either package, as in
+    ``tests/test_torch_port_pipeline.py``."""
+    cfg.process.n_rand_query = 1
+    cfg.process.refine_chunk = 1
+    return cfg
+
+
+def eval_timeline_scores(params_path, threshs, dev="cuda", timeline_seed=None,
+                         held=False):
+    """The detector saved at ``params_path`` (``eval_synthetic
+    --save-params``) on ``eval_synthetic.build``'s domain processes an 1800 s
+    evaluation timeline: one sweep, then the stages after it once per
+    threshold in ``threshs`` (``thresh`` and ``thresh_assoc`` both, as the
+    script's ``--thresh`` sets them; ``held``: with
+    :func:`held_process_config`). The timeline is JAX's committed draw, with
+    JAX's query grid, when ``timeline_seed`` is None, else the port's draw as
+    ``eval_synthetic.evaluate`` makes it (its own query grid). Returns
+    ``(records, pipeline, picks)``, one record per threshold:
+    ``eval_synthetic.score``'s dict, the fused-round launches of the sweep
+    and after it (each count set to 0 just before), their seconds, and the
+    catalog under ``"events"`` (dicts of :func:`catalog_event`)."""
+    import torch
+
+    from genie_tpu_torch.infer.pipeline import InferencePipeline
+    from genie_tpu_torch.models.detector import Detector
+    from genie_tpu_torch.ops.fused_round import fused_round
+    from genie_tpu_torch.params import load_flax_params, load_into
+    from genie_tpu_torch.scripts import eval_synthetic
+
+    cfg, ctx, tt = eval_synthetic.build(32, 200, 8, threshs[0], dev)
+    if held:
+        held_process_config(cfg)
+    model = load_into(Detector(src_chunk=16), load_flax_params(params_path))
+    if timeline_seed is None:
+        z = np.load(EVAL_DIR / "timeline_1234.npz")
+        picks = (z["pick_t"], z["pick_sta"], z["pick_phase"])
+        true_srcs, x_query = z["true_srcs"], z["x_query_grid"]
+    else:
+        picks, true_srcs = eval_synthetic.eval_timeline(cfg, ctx, tt, dev, timeline_seed)
+        x_query = None
+    pipe = InferencePipeline(model, cfg, ctx, tt.from_cart, device=dev,
+                             x_query_grid=x_query)
+    t0 = time.time()
+    fused_round.launches = 0
+    times_s, series = pipe.detection_sweep(*picks, 0.0, 1800.0)
+    torch.cuda.synchronize()
+    launches_sweep, sweep_s = fused_round.launches, time.time() - t0
+    out = []
+    for th in threshs:
+        cfg.process.thresh = cfg.process.thresh_assoc = th
+        t0 = time.time()
+        fused_round.launches = 0
+        events = pipe.process_from_sweep(times_s, series, *picks)
+        torch.cuda.synchronize()
+        out.append({"thresh": th, "timeline": "jax" if timeline_seed is None else
+                    timeline_seed, "held": held, "sweep_s": sweep_s,
+                    "after_s": time.time() - t0, "launches_sweep": launches_sweep,
+                    "launches_after_sweep": fused_round.launches,
+                    **eval_synthetic.score(events, true_srcs),
+                    "events": [catalog_event(e) for e in events]})
+    return out, pipe, picks
+
+
+def catalog_event(ev) -> dict:
+    return {"pos_cart": [float(v) for v in ev.pos_cart], "time": float(ev.time),
+            "picks": [int(i) for i in ev.picks],
+            "pick_phases": [int(p) for p in ev.pick_phases]}
+
+
+def _event_arrays(pipe, picks, ev, rows: int = 1):
+    """``ev``'s picks as the locator's (rows, L) arrays, times relative to
+    the event's."""
+    import torch
+
+    pick_t, pick_sta, _ = picks
+    idx = np.asarray(ev["picks"], np.int64)
+    dev = pipe.device
+    tp = torch.as_tensor(pick_t[idx] - float(ev["time"]), dtype=torch.float32,
+                         device=dev).repeat(rows, 1)
+    ip = torch.as_tensor(pick_sta[idx], dtype=torch.int32, device=dev).repeat(rows, 1)
+    ph = torch.as_tensor(np.asarray(ev["pick_phases"], np.float32),
+                         device=dev).repeat(rows, 1)[..., None]
+    return tp, ip, ph, torch.ones_like(tp, dtype=torch.bool)
+
+
+def location_cost(pipe, picks, ev, x4) -> float:
+    """The DE objective of ``pipe``'s locator (trimmed mean |residual|, s)
+    for ``ev``'s picks and phases at ``x4`` = (x, y, z, t)."""
+    import torch
+
+    from genie_tpu_torch.infer.locate import make_location_objective
+
+    fn = make_location_objective(pipe.trv, pipe.ctx.sta_cart,
+                                 *_event_arrays(pipe, picks, ev),
+                                 pipe.cfg.process.trim_fraction)
+    cand = torch.tensor([[[*x4[:3], x4[3] - float(ev["time"])]]], dtype=torch.float32,
+                        device=pipe.device)
+    with torch.no_grad():
+        return float(fn(cand)[0, 0])
+
+
+def relocated_cost(pipe, picks, ev, rows: int = EVAL_RERUNS) -> float:
+    """The lowest DE objective of ``rows`` more runs of ``pipe``'s locator on
+    ``ev``'s picks (one batch, a generator seeded 1)."""
+    import torch
+
+    from genie_tpu_torch.infer.locate import locate_sources_batched
+
+    ctx, dev = pipe.ctx, pipe.device
+    lo = torch.cat((ctx.offset_cart, torch.tensor([-30.0], device=dev)))
+    hi = torch.cat((ctx.offset_cart + ctx.scale_cart, torch.tensor([30.0], device=dev)))
+    with torch.no_grad():
+        _, _, cost = locate_sources_batched(
+            torch.Generator(device=dev).manual_seed(1), pipe.trv, ctx.sta_cart,
+            *_event_arrays(pipe, picks, ev, rows), lo, hi,
+            trim_fraction=pipe.cfg.process.trim_fraction)
+    return float(cost.min())
+
+
+def match_catalog(got, want, pipe, picks) -> dict:
+    """The port's catalog ``got`` (dicts of :func:`catalog_event`) against
+    JAX's ``want`` (the same, with JAX's objective at each location under
+    ``"cost"``), pairs in time order: the counts; the pairs within
+    ``EVAL_KM`` and ``EVAL_SEC`` (``close``); the others that hold the same
+    picks, where the port's objective at JAX's location equals JAX's cost
+    and the port's locator reaches that depth (``equal_cost``; see
+    ``EVAL_COST``); the largest distance and time difference, the largest
+    objective difference at JAX's locations over the pairs with the same
+    picks, and the largest excess of the port's deepest minimum over JAX's
+    cost; ``ok`` when every pair is close or of equal cost."""
+    got = sorted(got, key=lambda e: e["time"])
+    want = sorted(want, key=lambda e: e["time"])
+    out = {"n": len(got), "n_jax": len(want), "close": 0, "equal_cost": 0,
+           "max_m": 0.0, "max_s": 0.0, "max_objective_diff": 0.0,
+           "max_depth_excess": 0.0, "ok": False}
+    if len(got) != len(want) or not got:
+        return out
+    for a, b in zip(got, want):
+        xa = np.array([*a["pos_cart"], a["time"]], np.float64)
+        xb = np.array([*b["pos_cart"], b["time"]], np.float64)
+        d, dt = float(np.linalg.norm(xa[:3] - xb[:3])), float(abs(xa[3] - xb[3]))
+        out["max_m"], out["max_s"] = max(out["max_m"], d), max(out["max_s"], dt)
+        same = sorted(a["picks"]) == sorted(b["picks"])
+        agree = True
+        if same:
+            diff = abs(location_cost(pipe, picks, a, xb) - b["cost"])
+            out["max_objective_diff"] = max(out["max_objective_diff"], diff)
+            agree = diff <= EVAL_COST
+        if d < EVAL_KM and dt < EVAL_SEC:
+            out["close"] += agree
+        elif same and agree:
+            deepest = min(location_cost(pipe, picks, a, xa),
+                          relocated_cost(pipe, picks, a))
+            out["max_depth_excess"] = max(out["max_depth_excess"], deepest - b["cost"])
+            out["equal_cost"] += deepest <= b["cost"] + EVAL_COST
+    out["ok"] = out["close"] + out["equal_cost"] == len(got)
+    return out
+
+
+def score_eval(specs, card):
+    """``--score-eval PARAMS:SEED ...``: each detector at thresholds 0.2 and
+    0.3 on JAX's committed timeline and on its own (the port's draw seeded
+    SEED), one JSON line per detector, timeline and threshold."""
+    for spec in specs:
+        path, seed = spec.rsplit(":", 1)
+        for tl in (None, int(seed)):
+            recs, _, _ = eval_timeline_scores(path, (0.2, 0.3), timeline_seed=tl)
+            for rec in recs:
+                rec["events"] = [[*e["pos_cart"], e["time"], len(e["picks"])]
+                                 for e in rec["events"]]
+                print(f"[score-eval] {json.dumps({'params': path, 'card': card, **rec})}",
+                      flush=True)
+
+
 def _mean_loss(model, cfg, ctx, tt, batches) -> float:
     import torch
 
@@ -2696,8 +2902,11 @@ def evaluate_phase(seed: int, card: str, dev="cuda"):
     The briefly trained detector finds nothing at the script's threshold,
     so run6's trained weights (the same architecture) then process the same
     timeline: the catalog must be non-empty and finite, and the stages after
-    the sweep (refinement, association) must launch the kernel. Returns the
-    launches per path and the check records."""
+    the sweep (refinement, association) must launch the kernel. Last, the
+    committed 3000-step detector processes JAX's committed timeline and its
+    catalog must hold JAX's CPU catalog (``match_catalog``), with launches
+    in the sweep and after it. Returns the launches per path and the check
+    records."""
     import torch
 
     from genie_tpu_torch.graphs.build import build_station_graph
@@ -2810,6 +3019,26 @@ def evaluate_phase(seed: int, card: str, dev="cuda"):
              f"the sweep")
     del pipe, series
 
+    # the port's 3000-step detector on JAX's evaluation timeline at threshold
+    # 0.2, held to JAX's catalog of it at those weights
+    recs, pipe_t, picks_t = eval_timeline_scores(EVAL_DIR / "params.pkl", (0.2,), dev,
+                                                 held=True)
+    rec_t = recs[0]
+    want = json.loads((EVAL_DIR / "catalog_jax.json").read_text())
+    match = match_catalog(rec_t["events"], want["events"], pipe_t, picks_t)
+    del pipe_t
+    shown = {k: v for k, v in rec_t.items() if k != "events"}
+    print(f"[evaluate] 3000-step weights on JAX's timeline (held settings) "
+          f"{json.dumps({**shown, 'vs_jax': match, 'jax_score': want['score']})}",
+          flush=True)
+    counts = [(k, rec_t[k], want["score"][k]) for k in ("n_true", "n_detected", "n_matched")]
+    if not match["ok"] or any(a != b for _, a, b in counts):
+        fail(f"[evaluate] the 3000-step catalog differs from JAX's: {match}, score "
+             f"counts (port, JAX) {counts} (see EVAL_KM, EVAL_SEC, EVAL_COST)")
+    if rec_t["launches_sweep"] <= 0 or rec_t["launches_after_sweep"] <= 0:
+        fail(f"[evaluate] 3000-step weights: {rec_t['launches_sweep']} launches in the "
+             f"sweep, {rec_t['launches_after_sweep']} after it")
+
     # one more training step of the trained weights under the profiler
     from torch.profiler import ProfilerActivity, profile
 
@@ -2829,7 +3058,9 @@ def evaluate_phase(seed: int, card: str, dev="cuda"):
     print(f"[evaluate] phase {time.time() - t_phase:.1f} s", flush=True)
     return ({"evaluate_train": info["launches_train"],
              "evaluate_process": info["launches_process"],
-             "evaluate_run6_process": launches_sweep + launches_after}, records, bwd)
+             "evaluate_run6_process": launches_sweep + launches_after,
+             "evaluate_trained_sweep": rec_t["launches_sweep"],
+             "evaluate_trained_after_sweep": rec_t["launches_after_sweep"]}, records, bwd)
 
 
 # -- phase 17: [scaling] -----------------------------------------------------------
@@ -3156,6 +3387,10 @@ def main():
                     help="on a machine with several cards: build the kernel and "
                          "run only [shard] and [scaling]'s measure_scaling, over "
                          "NCCL with one rank per card")
+    ap.add_argument("--score-eval", nargs="+", metavar="PARAMS:SEED",
+                    help="score eval_synthetic --save-params detectors at thresholds "
+                         "0.2 and 0.3 on JAX's committed timeline and on the port's "
+                         "timeline seeded SEED, then stop")
     args = ap.parse_args()
 
     import torch
@@ -3178,6 +3413,9 @@ def main():
     from genie_tpu_torch.ops.segment import aggregation_weights
 
     build_kernels()
+    if args.score_eval:
+        score_eval(args.score_eval, nvidia_smi()[0])
+        return
     t_mark = [time.time()]
 
     def mark(name):

@@ -127,6 +127,31 @@ def score(events, true_srcs) -> dict:
             "median_t_err_s": stats.get("residual_t_mean")}
 
 
+def eval_timeline(cfg, ctx, tt, device, timeline_seed: int = 1234,
+                  eval_T: float = 1800.0):
+    """The evaluation timeline of :func:`evaluate`: ``eval_T`` seconds drawn
+    on ``device`` from a generator seeded ``timeline_seed``. Returns the
+    picks (times, stations, phases as float32) and the (n, 4) detectable
+    true sources (x, y, z, t)."""
+    from genie_tpu_torch.synth.generator import synthesize_timeline
+
+    syn = copy.deepcopy(cfg.synth)
+    syn.T = eval_T
+    lo, sc = ctx.offset_cart, ctx.scale_cart
+    with torch.no_grad():
+        tl = synthesize_timeline(
+            torch.Generator(device=torch.device(device)).manual_seed(timeline_seed), syn,
+            ctx.sta_cart, tt.from_cart, sc, lo, (lo[2], lo[2] + sc[2]),
+            n_sta_real=ctx.sta_cart.shape[0])
+    pm = _np(tl.pick_mask)
+    picks = (_np(tl.pick_t)[pm], _np(tl.pick_sta)[pm],
+             _np(tl.pick_phase)[pm].astype(np.float32))
+    det = detectable_events(tl, cfg)
+    true_srcs = np.concatenate((_np(tl.ev_pos_cart)[det], _np(tl.ev_time)[det][:, None]),
+                               axis=1)
+    return picks, true_srcs
+
+
 def evaluate(cfg, ctx, tt, steps: int, device, train_seed: int = 0,
              timeline_seed: int = 1234, budget_s: float | None = None,
              eval_T: float = 1800.0):
@@ -144,7 +169,6 @@ def evaluate(cfg, ctx, tt, steps: int, device, train_seed: int = 0,
     from genie_tpu_torch.infer.pipeline import InferencePipeline
     from genie_tpu_torch.models.detector import Detector
     from genie_tpu_torch.ops.fused_round import fused_round
-    from genie_tpu_torch.synth.generator import synthesize_timeline
     from genie_tpu_torch.train.trainer import init_train_state, make_train_step
 
     dev = torch.device(device)
@@ -169,20 +193,8 @@ def evaluate(cfg, ctx, tt, steps: int, device, train_seed: int = 0,
     train_time = time.time() - t0
     launches_train = fused_round.launches
 
-    syn = copy.deepcopy(cfg.synth)
-    syn.T = eval_T
-    lo, sc = ctx.offset_cart, ctx.scale_cart
-    with torch.no_grad():
-        tl = synthesize_timeline(torch.Generator(device=dev).manual_seed(timeline_seed),
-                                 syn, ctx.sta_cart, tt.from_cart, sc, lo,
-                                 (lo[2], lo[2] + sc[2]), n_sta_real=ctx.sta_cart.shape[0])
-    pm = _np(tl.pick_mask)
-    pick_t = _np(tl.pick_t)[pm]
-    pick_sta = _np(tl.pick_sta)[pm]
-    pick_ph = _np(tl.pick_phase)[pm].astype(np.float32)
-    det = detectable_events(tl, cfg)
-    true_srcs = np.concatenate((_np(tl.ev_pos_cart)[det], _np(tl.ev_time)[det][:, None]),
-                               axis=1)
+    (pick_t, pick_sta, pick_ph), true_srcs = eval_timeline(cfg, ctx, tt, dev,
+                                                           timeline_seed, eval_T)
 
     t1 = time.time()
     pipe = InferencePipeline(state.model, cfg, ctx, tt.from_cart, device=dev)
