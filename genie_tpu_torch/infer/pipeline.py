@@ -46,6 +46,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from genie_tpu_torch import tracing
 from genie_tpu_torch.config import Config
 from genie_tpu_torch.device import resolve_device
 from genie_tpu_torch.calibration.magnitude_scale import (
@@ -273,6 +274,7 @@ class InferencePipeline:
         pm[:len(sel)] = True
         return tp, ip, ph, pm, sel
 
+    @tracing.as_request("pipeline.detection_sweep")
     def detection_sweep(self, pick_t, pick_sta, pick_phase, t_start, t_end,
                         grids=None, window_batch: int = 16,
                         checkpoint_path=None, checkpoint_every: int = 150,
@@ -300,12 +302,16 @@ class InferencePipeline:
 
         self._overflow = 0
         batch_idx, batch_data = [], []
-        for w, t0 in enumerate(t0s):
-            tp, ip, ph, pm, _ = self._window_picks(pick_t, pick_sta, pick_phase, t0)
-            if pm.sum() == 0:
-                continue  # quiescent window
-            batch_idx.append(w)
-            batch_data.append((tp, ip, ph, pm))
+        with tracing.span("sweep.window_picks"):
+            for w, t0 in enumerate(t0s):
+                tp, ip, ph, pm, _ = self._window_picks(pick_t, pick_sta, pick_phase, t0)
+                if pm.sum() == 0:
+                    continue  # quiescent window
+                batch_idx.append(w)
+                batch_data.append((tp, ip, ph, pm))
+        tracing.count("sweep.windows", len(t0s))
+        tracing.count("sweep.windows_nonempty", len(batch_idx))
+        tracing.count("sweep.overflow_windows", self._overflow)
         if self._overflow:
             print(f"[pipeline] pick overflow in {self._overflow}/{len(t0s)} "
                   f"windows (max_picks={cfg.graph.max_picks}); kept "
@@ -314,12 +320,13 @@ class InferencePipeline:
         def dispatch(s):
             """Enqueue one window batch (grid ensemble averaged on the
             device); returns the device tensor without waiting for it."""
-            tp, ip, ph, pm = self._to_device(batch_data[s:s + window_batch])
-            out = None
-            for g in grids:
-                o = self._sweep_batch(tp, ip, ph, pm, g)
-                out = o if out is None else out + o
-            return out / len(grids)
+            with tracing.span("sweep.dispatch"):
+                tp, ip, ph, pm = self._to_device(batch_data[s:s + window_batch])
+                out = None
+                for g in grids:
+                    o = self._sweep_batch(tp, ip, ph, pm, g)
+                    out = o if out is None else out + o
+                return out / len(grids)
 
         starts = list(range(0, len(batch_idx), window_batch))
         fingerprint = np.array([t_start, t_end, step, n_q, n_bins,
@@ -351,34 +358,37 @@ class InferencePipeline:
 
         inflight: list[tuple[int, object]] = []
         depth = 4
-        t_sw, n_done = time.time(), n_resume
+        t_sw, n_done = time.perf_counter(), n_resume
+        tracing.count("sweep.batches", len(starts) - n_resume)
 
         def drain(s0, dev):
             nonlocal n_done
-            for attempt in range(max_retries + 1):
-                try:
-                    if dev is None:
-                        dev = dispatch(s0)  # re-dispatch this exact batch
-                    out = dev.cpu().numpy()
-                    break
-                except Exception as e:  # transient failure: same device again
-                    dev = None
-                    if attempt == max_retries:
-                        raise
-                    print(f"[pipeline] sweep batch at {s0} failed "
-                          f"({type(e).__name__}: {e}); retry "
-                          f"{attempt + 1}/{max_retries} in "
-                          f"{retry_wait * (attempt + 1):.0f}s", flush=True)
-                    time.sleep(retry_wait * (attempt + 1))
-            for j, w in enumerate(batch_idx[s0:s0 + window_batch]):
-                bins = np.round((t0s[w] + t_rel - t_min) / dt_axis).astype(np.int64)
-                acc[bins] += out[j].T
-                cnt[bins] += 1.0
+            with tracing.span("sweep.wait"):
+                for attempt in range(max_retries + 1):
+                    try:
+                        if dev is None:
+                            dev = dispatch(s0)  # re-dispatch this exact batch
+                        out = dev.cpu().numpy()
+                        break
+                    except Exception as e:  # transient failure: same device again
+                        dev = None
+                        if attempt == max_retries:
+                            raise
+                        print(f"[pipeline] sweep batch at {s0} failed "
+                              f"({type(e).__name__}: {e}); retry "
+                              f"{attempt + 1}/{max_retries} in "
+                              f"{retry_wait * (attempt + 1):.0f}s", flush=True)
+                        time.sleep(retry_wait * (attempt + 1))
+            with tracing.span("sweep.accumulate"):
+                for j, w in enumerate(batch_idx[s0:s0 + window_batch]):
+                    bins = np.round((t0s[w] + t_rel - t_min) / dt_axis).astype(np.int64)
+                    acc[bins] += out[j].T
+                    cnt[bins] += 1.0
             n_done += 1
             if checkpoint_path is not None and n_done % checkpoint_every == 0:
                 save_checkpoint(n_done)
             if self.verbose and n_done % 50 == 0:
-                dt_b = (time.time() - t_sw) / max(n_done - n_resume, 1)
+                dt_b = (time.perf_counter() - t_sw) / max(n_done - n_resume, 1)
                 print(f"[pipeline] sweep {n_done}/{len(starts)} batches "
                       f"({dt_b:.2f}s/batch, eta "
                       f"{dt_b * (len(starts) - n_done):.0f}s)", flush=True)
@@ -495,15 +505,18 @@ class InferencePipeline:
                 continue
             win.append((tp, ip, ph, pm))
             idx_live.append(i)
+        tracing.count("refine.sources", len(idx_live))
 
         for s in range(0, len(idx_live), batch):
-            sel = idx_live[s:s + batch]
-            tp, ip, ph, pm = self._to_device(win[s:s + batch])
-            pos0 = torch.as_tensor(srcs[sel, :3].astype(np.float32), device=self.device)
-            val0 = torch.as_tensor(vals[sel].astype(np.float32), device=self.device)
-            bp, bt, bv = self._refine_batch(tp, ip, ph, pm, pos0, val0, gen,
-                                            grid, n_rand, chunk)
-            bp, bt, bv = bp.cpu().numpy(), bt.cpu().numpy(), bv.cpu().numpy()
+            with tracing.span("refine.batch"):
+                sel = idx_live[s:s + batch]
+                tp, ip, ph, pm = self._to_device(win[s:s + batch])
+                pos0 = torch.as_tensor(srcs[sel, :3].astype(np.float32),
+                                       device=self.device)
+                val0 = torch.as_tensor(vals[sel].astype(np.float32), device=self.device)
+                bp, bt, bv = self._refine_batch(tp, ip, ph, pm, pos0, val0, gen,
+                                                grid, n_rand, chunk)
+                bp, bt, bv = bp.cpu().numpy(), bt.cpu().numpy(), bv.cpu().numpy()
             for j, i in enumerate(sel):
                 if bv[j] > vals[i]:
                     out[i, :3] = bp[j]
@@ -582,19 +595,22 @@ class InferencePipeline:
         if len(srcs) == 0:
             return []
         t0 = srcs[:, 3].min() - cfg.model.t_win / 4
-        tp, ip, ph, pm, sel = self._window_picks(pick_t, pick_sta, pick_phase, t0)
+        with tracing.span("associate.windows"):
+            tp, ip, ph, pm, sel = self._window_picks(pick_t, pick_sta, pick_phase, t0)
+        tracing.count("associate.sources", len(srcs))
         n_pad = n_qsrc_pad or self._pad_level(len(srcs))
         xq = np.zeros((n_pad, 3), np.float32)
         tq = np.zeros(n_pad, np.float32)
         xq[:len(srcs)] = srcs[:, :3]
         tq[:len(srcs)] = srcs[:, 3] - t0
         dev = self.device
-        tpd, ipd, phd, pmd = self._to_device([(tp, ip, ph, pm)])
-        arv_p, arv_s = self._assoc_window(
-            tpd, ipd, phd, pmd, torch.as_tensor(xq, device=dev)[None],
-            torch.as_tensor(tq, device=dev)[None], grid)
-        w = np.stack((arv_p[0].cpu().numpy(), arv_s[0].cpu().numpy()),
-                     axis=-1)[:len(srcs)]
+        with tracing.span("associate.forward"):
+            tpd, ipd, phd, pmd = self._to_device([(tp, ip, ph, pm)])
+            arv_p, arv_s = self._assoc_window(
+                tpd, ipd, phd, pmd, torch.as_tensor(xq, device=dev)[None],
+                torch.as_tensor(tq, device=dev)[None], grid)
+            w = np.stack((arv_p[0].cpu().numpy(), arv_s[0].cpu().numpy()),
+                         axis=-1)[:len(srcs)]
         w = np.where(w > cfg.process.thresh_assoc, w, 0.0)
         w = w * pm[None, :, None]
 
@@ -604,7 +620,10 @@ class InferencePipeline:
                 picks=sel[pick_rows], pick_phases=phases,
                 score=float(vals[q]) if vals is not None else None)
 
-        return self._assign(w, ip, srcs[:, :3], srcs[:, 3], make_event)
+        with tracing.span("associate.assign"):
+            events = self._assign(w, ip, srcs[:, :3], srcs[:, 3], make_event)
+        tracing.count("associate.events", len(events))
+        return events
 
     def associate_per_source(self, pick_t, pick_sta, pick_phase, srcs,
                              grid: int = 0, vals=None, batch: int = 16):
@@ -617,14 +636,16 @@ class InferencePipeline:
             return []
         tq_anchor = 0.0
         wins, sels, live = [], [], []
-        for i in range(len(srcs)):
-            tp, ip, ph, pm, sel = self._window_picks(
-                pick_t, pick_sta, pick_phase, srcs[i, 3] - tq_anchor)
-            if pm.sum() == 0:
-                continue
-            wins.append((tp, ip, ph, pm))
-            sels.append(sel)
-            live.append(i)
+        with tracing.span("associate.windows"):
+            for i in range(len(srcs)):
+                tp, ip, ph, pm, sel = self._window_picks(
+                    pick_t, pick_sta, pick_phase, srcs[i, 3] - tq_anchor)
+                if pm.sum() == 0:
+                    continue
+                wins.append((tp, ip, ph, pm))
+                sels.append(sel)
+                live.append(i)
+        tracing.count("associate.sources", len(live))
         if not live:
             return []
 
@@ -632,40 +653,44 @@ class InferencePipeline:
         w_p = np.zeros((len(live), n_pick_w), np.float32)
         w_s = np.zeros((len(live), n_pick_w), np.float32)
         for s in range(0, len(live), batch):
-            idx = live[s:s + batch]
-            tp, ip, ph, pm = self._to_device(wins[s:s + batch])
-            xq = torch.as_tensor(srcs[idx, :3].astype(np.float32),
-                                 device=self.device)[:, None, :]
-            tq = torch.full((len(idx), 1), tq_anchor, device=self.device)
-            arv_p, arv_s = self._assoc_window(tp, ip, ph, pm, xq, tq, grid)
-            w_p[s:s + len(idx)] = arv_p[:, 0].cpu().numpy()
-            w_s[s:s + len(idx)] = arv_s[:, 0].cpu().numpy()
+            with tracing.span("associate.forward"):
+                idx = live[s:s + batch]
+                tp, ip, ph, pm = self._to_device(wins[s:s + batch])
+                xq = torch.as_tensor(srcs[idx, :3].astype(np.float32),
+                                     device=self.device)[:, None, :]
+                tq = torch.full((len(idx), 1), tq_anchor, device=self.device)
+                arv_p, arv_s = self._assoc_window(tp, ip, ph, pm, xq, tq, grid)
+                w_p[s:s + len(idx)] = arv_p[:, 0].cpu().numpy()
+                w_s[s:s + len(idx)] = arv_s[:, 0].cpu().numpy()
 
-        # day-global weight matrix over the union of windowed picks
-        thr = cfg.process.thresh_assoc
-        gids = sorted(set(int(g) for s_i in sels for g in s_i))
-        gpos = {g: j for j, g in enumerate(gids)}
-        W = np.zeros((len(live), len(gids), 2), np.float32)
-        for r, sel in enumerate(sels):
-            nv = len(sel)
-            wp = np.where(w_p[r, :nv] > thr, w_p[r, :nv], 0.0)
-            ws = np.where(w_s[r, :nv] > thr, w_s[r, :nv], 0.0)
-            cols = [gpos[int(g)] for g in sel]
-            W[r, cols, 0] = np.maximum(W[r, cols, 0], wp)
-            W[r, cols, 1] = np.maximum(W[r, cols, 1], ws)
+        with tracing.span("associate.assign"):
+            # day-global weight matrix over the union of windowed picks
+            thr = cfg.process.thresh_assoc
+            gids = sorted(set(int(g) for s_i in sels for g in s_i))
+            gpos = {g: j for j, g in enumerate(gids)}
+            W = np.zeros((len(live), len(gids), 2), np.float32)
+            for r, sel in enumerate(sels):
+                nv = len(sel)
+                wp = np.where(w_p[r, :nv] > thr, w_p[r, :nv], 0.0)
+                ws = np.where(w_s[r, :nv] > thr, w_s[r, :nv], 0.0)
+                cols = [gpos[int(g)] for g in sel]
+                W[r, cols, 0] = np.maximum(W[r, cols, 0], wp)
+                W[r, cols, 1] = np.maximum(W[r, cols, 1], ws)
 
-        gid_arr = np.asarray(gids, np.int64)
-        src_rows = np.asarray(live)
+            gid_arr = np.asarray(gids, np.int64)
+            src_rows = np.asarray(live)
 
-        def make_event(q, pick_rows, phases):
-            i_src = live[q]
-            return CatalogEvent(
-                pos_cart=srcs[i_src, :3].copy(), time=float(srcs[i_src, 3]),
-                picks=gid_arr[pick_rows], pick_phases=phases,
-                score=float(vals[i_src]) if vals is not None else None)
+            def make_event(q, pick_rows, phases):
+                i_src = live[q]
+                return CatalogEvent(
+                    pos_cart=srcs[i_src, :3].copy(), time=float(srcs[i_src, 3]),
+                    picks=gid_arr[pick_rows], pick_phases=phases,
+                    score=float(vals[i_src]) if vals is not None else None)
 
-        return self._assign(W, pick_sta[gid_arr], srcs[src_rows, :3],
-                            srcs[src_rows, 3], make_event)
+            events = self._assign(W, pick_sta[gid_arr], srcs[src_rows, :3],
+                                  srcs[src_rows, 3], make_event)
+        tracing.count("associate.events", len(events))
+        return events
 
     # -- stage 7: location + QC ---------------------------------------------
     @torch.no_grad()
@@ -681,35 +706,42 @@ class InferencePipeline:
         events (padded to their largest pick count) per device pass."""
         from genie_tpu_torch.infer.locate import (locate_sources_batched,
                                                   location_uncertainty_batched)
+        if not evs:
+            return
         dev = self.device
         ctx = self.ctx
         lo = torch.cat((ctx.offset_cart, torch.tensor([-30.0], device=dev)))
         hi = torch.cat((ctx.offset_cart + ctx.scale_cart,
                         torch.tensor([30.0], device=dev)))
-        for s in range(0, len(evs), max_batch):
-            chunk = evs[s:s + max_batch]
-            L = max(len(ev.picks) for ev in chunk)
-            tp = np.zeros((len(chunk), L), np.float32)
-            ip = np.zeros((len(chunk), L), np.int32)
-            ph = np.zeros((len(chunk), L, 1), np.float32)
-            mk = np.zeros((len(chunk), L), bool)
-            for r, ev in enumerate(chunk):
-                n = len(ev.picks)
-                tp[r, :n] = pick_t[ev.picks] - ev.time
-                ip[r, :n] = pick_sta[ev.picks]
-                ph[r, :n, 0] = ev.pick_phases
-                mk[r, :n] = True
-            tp, ip, ph, mk = (torch.as_tensor(a, device=dev) for a in (tp, ip, ph, mk))
-            pos, t0, _ = locate_sources_batched(
-                generator, self.trv, ctx.sta_cart, tp, ip, ph, mk, lo, hi,
-                trim_fraction=self.cfg.process.trim_fraction)
-            cov = location_uncertainty_batched(self.trv, ctx.sta_cart, pos, t0,
-                                               tp, ip, ph, mk)
-            pos, t0, cov = pos.cpu().numpy(), t0.cpu().numpy(), cov.cpu().numpy()
-            for r, ev in enumerate(chunk):
-                ev.pos_cart = pos[r].copy()
-                ev.time = ev.time + float(t0[r])
-                ev.cov = cov[r]
+        with tracing.span("locate.pass"):
+            tracing.count("locate.passes")
+            for s in range(0, len(evs), max_batch):
+                chunk = evs[s:s + max_batch]
+                L = max(len(ev.picks) for ev in chunk)
+                tp = np.zeros((len(chunk), L), np.float32)
+                ip = np.zeros((len(chunk), L), np.int32)
+                ph = np.zeros((len(chunk), L, 1), np.float32)
+                mk = np.zeros((len(chunk), L), bool)
+                for r, ev in enumerate(chunk):
+                    n = len(ev.picks)
+                    tp[r, :n] = pick_t[ev.picks] - ev.time
+                    ip[r, :n] = pick_sta[ev.picks]
+                    ph[r, :n, 0] = ev.pick_phases
+                    mk[r, :n] = True
+                tp, ip, ph, mk = (torch.as_tensor(a, device=dev) for a in (tp, ip, ph, mk))
+                with tracing.span("locate.de"):
+                    pos, t0, _ = locate_sources_batched(
+                        generator, self.trv, ctx.sta_cart, tp, ip, ph, mk, lo, hi,
+                        trim_fraction=self.cfg.process.trim_fraction)
+                with tracing.span("locate.covariance"):
+                    cov = location_uncertainty_batched(self.trv, ctx.sta_cart, pos, t0,
+                                                       tp, ip, ph, mk)
+                with tracing.span("locate.wait"):
+                    pos, t0, cov = pos.cpu().numpy(), t0.cpu().numpy(), cov.cpu().numpy()
+                for r, ev in enumerate(chunk):
+                    ev.pos_cart = pos[r].copy()
+                    ev.time = ev.time + float(t0[r])
+                    ev.cov = cov[r]
 
     def locate(self, events, pick_t, pick_sta, seed: int = 0,
                qc_resid_mult: float = 3.0, qc_resid_min: float = 1.5,
@@ -726,20 +758,23 @@ class InferencePipeline:
                     len(np.unique(pick_sta[ev.picks])) >= cfg.process.min_required_sta)
 
         evs = [ev for ev in events if eligible(ev)]
+        tracing.count("locate.events", len(evs))
         self._locate_batch(evs, pick_t, pick_sta, gen)
 
         survivors, redo = [], []
-        for ev in evs:
-            res = self._residuals(ev, pick_t, pick_sta)
-            sigma = 1.4826 * np.median(np.abs(res - np.median(res))) + 1e-6
-            keep = np.abs(res) <= max(qc_resid_mult * sigma, qc_resid_min)
-            if keep.sum() < len(keep):
-                ev.picks = ev.picks[keep]
-                ev.pick_phases = ev.pick_phases[keep]
-                if not eligible(ev):
-                    continue
-                redo.append(ev)
-            survivors.append(ev)
+        with tracing.span("locate.residual_qc"):
+            for ev in evs:
+                res = self._residuals(ev, pick_t, pick_sta)
+                sigma = 1.4826 * np.median(np.abs(res - np.median(res))) + 1e-6
+                keep = np.abs(res) <= max(qc_resid_mult * sigma, qc_resid_min)
+                if keep.sum() < len(keep):
+                    ev.picks = ev.picks[keep]
+                    ev.pick_phases = ev.pick_phases[keep]
+                    if not eligible(ev):
+                        continue
+                    redo.append(ev)
+                survivors.append(ev)
+        tracing.count("locate.relocated", len(redo))
         self._locate_batch(redo, pick_t, pick_sta, gen)
 
         out = []
@@ -749,6 +784,8 @@ class InferencePipeline:
                 if (sig[:2].max() > max_sigma_xy) or (sig[3] > max_sigma_t):
                     continue
             out.append(ev)
+        tracing.count("locate.dropped_qc", len(evs) - len(out))
+        tracing.count("locate.out", len(out))
         return out
 
     # -- stage 8: magnitudes ------------------------------------------------
@@ -791,17 +828,19 @@ class InferencePipeline:
         return out
 
     # -- full day ----------------------------------------------------------
+    @tracing.as_request("pipeline.process")
     def process(self, pick_t, pick_sta, pick_phase, t_start, t_end,
                 pick_amp=None, grids=None):
-        """The whole day: sweep, then :meth:`process_from_sweep`. Host-clock
-        seconds per stage land in ``self.stage_seconds``."""
-        t_st = time.time()
-        times_s, series = self.detection_sweep(pick_t, pick_sta, pick_phase,
-                                               t_start, t_end, grids=grids)
-        t_sweep = time.time() - t_st
+        """The whole day: sweep, then :meth:`process_from_sweep`. Host
+        seconds per stage (monotonic clock; the ``pipeline.<stage>`` spans of
+        ``genie_tpu_torch.tracing``) land in ``self.stage_seconds``."""
+        swept = {}
+        with tracing.stage("pipeline.sweep", swept, "sweep"):
+            times_s, series = self.detection_sweep(pick_t, pick_sta, pick_phase,
+                                                   t_start, t_end, grids=grids)
         events = self.process_from_sweep(times_s, series, pick_t, pick_sta,
                                          pick_phase, pick_amp=pick_amp)
-        self.stage_seconds = {"sweep": t_sweep, **self.stage_seconds}
+        self.stage_seconds = {**swept, **self.stage_seconds}
         return events
 
     def _ledger(self, stage, arr4, trace, sig_x=25e3, sig_t=15.0):
@@ -827,6 +866,7 @@ class InferencePipeline:
         print(f"[ledger] {stage:10s}: {len(trace) - len(miss)}/{len(trace)} "
               f"targets covered; missing {miss}", flush=True)
 
+    @tracing.as_request("pipeline.process_from_sweep")
     def process_from_sweep(self, times_s, series, pick_t, pick_sta, pick_phase,
                            pick_amp=None, thresh=None, trace=None):
         """Stages 2-8 given a (possibly cached) sweep series. ``trace``: an
@@ -835,45 +875,46 @@ class InferencePipeline:
         it changes nothing else."""
         cfg = self.cfg
         _check_assoc_mode(cfg.process.assoc_mode)
-        self.stage_seconds = {}
+        sec = self.stage_seconds = {}
         self.ledger = {}
         if trace is not None:
             trace = np.asarray(trace).reshape(-1, 4)
-        t_st = time.time()
-        cands, vals = self.extract_candidates(times_s, series, thresh=thresh)
-        self._ledger("peaks", cands, trace)
-        srcs, svals = self.cluster_candidates(cands, vals)
-        self._ledger("cluster", srcs, trace)
-        self.stage_seconds["candidates"] = time.time() - t_st
+        with tracing.stage("pipeline.candidates", sec, "candidates"):
+            with tracing.span("candidates.peaks"):
+                cands, vals = self.extract_candidates(times_s, series, thresh=thresh)
+            self._ledger("peaks", cands, trace)
+            with tracing.span("candidates.cluster"):
+                srcs, svals = self.cluster_candidates(cands, vals)
+            self._ledger("cluster", srcs, trace)
+        tracing.count("candidates.peaks", len(cands))
+        tracing.count("candidates.clustered", len(srcs))
         if self.verbose:
             print(f"[pipeline] {len(cands)} peaks -> {len(srcs)} clustered",
                   flush=True)
         if len(srcs) == 0:
             return []
-        t_st = time.time()
-        srcs, svals = self.refine_sources(pick_t, pick_sta, pick_phase, srcs, svals)
-        self._ledger("refine", srcs, trace)
-        self.stage_seconds["refine"] = time.time() - t_st
-        t_st = time.time()
-        events = []
-        for g in split_time_groups(srcs[:, 3], cfg.process.break_win):
-            g = g[np.argsort(srcs[g, 3])]
-            if cfg.process.assoc_mode == "per_source":
-                events.extend(self.associate_per_source(
-                    pick_t, pick_sta, pick_phase,
-                    np.concatenate((srcs[g, :3], srcs[g, 3:4]), axis=1),
-                    vals=svals[g]))
-                continue
-            start = 0
-            while start < len(g):
-                span_end = srcs[g[start], 3] + cfg.model.t_win
-                sub = g[(srcs[g, 3] >= srcs[g[start], 3]) & (srcs[g, 3] <= span_end)]
-                events.extend(self.associate(
-                    pick_t, pick_sta, pick_phase,
-                    np.concatenate((srcs[sub, :3], srcs[sub, 3:4]), axis=1),
-                    vals=svals[sub]))
-                start += len(sub)
-        self.stage_seconds["associate"] = time.time() - t_st
+        with tracing.stage("pipeline.refine", sec, "refine"):
+            srcs, svals = self.refine_sources(pick_t, pick_sta, pick_phase, srcs, svals)
+            self._ledger("refine", srcs, trace)
+        with tracing.stage("pipeline.associate", sec, "associate"):
+            events = []
+            for g in split_time_groups(srcs[:, 3], cfg.process.break_win):
+                g = g[np.argsort(srcs[g, 3])]
+                if cfg.process.assoc_mode == "per_source":
+                    events.extend(self.associate_per_source(
+                        pick_t, pick_sta, pick_phase,
+                        np.concatenate((srcs[g, :3], srcs[g, 3:4]), axis=1),
+                        vals=svals[g]))
+                    continue
+                start = 0
+                while start < len(g):
+                    span_end = srcs[g[start], 3] + cfg.model.t_win
+                    sub = g[(srcs[g, 3] >= srcs[g[start], 3]) & (srcs[g, 3] <= span_end)]
+                    events.extend(self.associate(
+                        pick_t, pick_sta, pick_phase,
+                        np.concatenate((srcs[sub, :3], srcs[sub, 3:4]), axis=1),
+                        vals=svals[sub]))
+                    start += len(sub)
         if trace is not None:
             ev4 = np.array([[*ev.pos_cart, ev.time] for ev in events])
             self._ledger("associate", ev4, trace)
@@ -882,19 +923,20 @@ class InferencePipeline:
             elig = ((npick >= cfg.process.min_required_picks)
                     & (nsta >= cfg.process.min_required_sta))
             self._ledger("eligible", ev4[elig] if elig.any() else ev4[:0], trace)
-        t_st = time.time()
-        located = self.locate(events, pick_t, pick_sta)
-        if trace is not None:
-            self._ledger("locate+qc", np.array([[*ev.pos_cart, ev.time]
-                                                for ev in located]), trace)
-        deduped = self.dedup(located)
-        if trace is not None:
-            self._ledger("dedup", np.array([[*ev.pos_cart, ev.time]
-                                            for ev in deduped]), trace)
-        self.stage_seconds["locate"] = time.time() - t_st
-        t_st = time.time()
-        out = self.assign_magnitudes(deduped, pick_sta, pick_amp)
-        self.stage_seconds["magnitudes"] = time.time() - t_st
+        with tracing.stage("pipeline.locate", sec, "locate"):
+            located = self.locate(events, pick_t, pick_sta)
+            if trace is not None:
+                self._ledger("locate+qc", np.array([[*ev.pos_cart, ev.time]
+                                                    for ev in located]), trace)
+            with tracing.span("locate.dedup"):
+                deduped = self.dedup(located)
+            if trace is not None:
+                self._ledger("dedup", np.array([[*ev.pos_cart, ev.time]
+                                                for ev in deduped]), trace)
+        tracing.count("dedup.out", len(deduped))
+        with tracing.stage("pipeline.magnitudes", sec, "magnitudes"):
+            out = self.assign_magnitudes(deduped, pick_sta, pick_amp)
+        tracing.count("magnitudes.events", len(out))
         return out
 
     def dedup(self, events):

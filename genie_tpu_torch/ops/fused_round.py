@@ -23,7 +23,9 @@ the ``e`` columns are absent.
 
 :func:`fused_round` launches the kernel (``csrc/fused_round.cu``) on CUDA
 tensors and raises if it cannot; it takes :func:`fused_round_plain` only for
-tensors that lie on the CPU. ``fused_round.launches`` counts kernel launches.
+tensors that lie on the CPU. ``fused_round.launches`` counts kernel launches;
+while the tracer records (``genie_tpu_torch.tracing``) each call also leaves
+its shape and path there.
 Any station count launches: past about 900 stations (H = 30) the kernel's
 per-row buffer ``Y = PReLU(z) @ W1a`` no longer fits in shared memory beside
 the ring, and the wrapper allocates a per-block scratch for it in device
@@ -44,6 +46,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from genie_tpu_torch import tracing
 from genie_tpu_torch.ops.segment import dense_to_neighbours, neighbours_to_dense
 
 # Per-block shared-memory limit of an H100 (sm_90), bytes.
@@ -181,6 +184,8 @@ def fused_round(x, z, agg_src, mask, nbr, w, w1, b1, w2, b2, slopes,
     if (e_sta is None) != (e_src is None):
         raise ValueError("fused_round: give both edge tables or neither")
     if x.device.type == "cpu":
+        if tracing.recording():
+            tracing.launch(_launch_shape(x, z, mask, nbr, w1, e_sta), "plain")
         return fused_round_plain(x, z, agg_src, mask, nbr, w, w1, b1, w2, b2,
                                  slopes, e_sta, e_src)
     if x.device.type != "cuda":
@@ -268,10 +273,23 @@ def fused_round(x, z, agg_src, mask, nbr, w, w1, b1, w2, b2, slopes,
         raise RuntimeError(f"fused_round kernel launch failed: CUDA error "
                            f"{err} ({msg})")
     fused_round.launches += 1
+    if tracing.recording():
+        tracing.launch(_launch_shape(x, z, mask, nbr, w1, e_sta), "kernel")
     return out
 
 
 fused_round.launches = 0
+
+
+def _launch_shape(x, z, mask, nbr, w1, e_sta) -> tuple:
+    """(rows, n_sta, n_src, cx, cz, e, m, k, h, z_is_x) of one call."""
+    rows = 1
+    for s in x.shape[:-2]:
+        rows *= int(s)
+    return (rows, int(x.shape[-2]), int(x.shape[-3]) if x.dim() >= 3 else 0,
+            int(x.shape[-1]), int(z.shape[-1]), 0 if e_sta is None else int(e_sta.shape[-1]),
+            int(mask.shape[-1]), int(nbr.shape[-1]), int(w1.shape[0]),
+            z.data_ptr() == x.data_ptr() and z.shape == x.shape)
 
 
 def _dprelu(h, a):

@@ -14,7 +14,7 @@ runs under a patched ``sys.argv``; the port's run with ``--device cpu``.
   ``--restart`` resumes;
 * ``process_continuous_days``: run6's weights on a 16-station project, the
   catalogs equal within 1 km and 0.2 s (the DE locator draws differ) with
-  equal pick lists;
+  equal pick lists; the port's ``--trace-spans`` writes the day's spans;
 * ``calibrate``: the printed statistics and fit loss equal, the
   corrections within 1 % of the largest (mean |Δ| under 1e-3 s);
 
@@ -28,6 +28,7 @@ import contextlib
 import importlib
 import importlib.util
 import io
+import json
 import re
 import shutil
 import sys
@@ -365,6 +366,31 @@ def test_process_continuous_days_matches_jax(served):
         assert abs(b.time - a.time) < 0.2                        # 0.2 s
     for node, t_ev in served["planted"]:
         assert min(abs(e.time - t_ev) for e in te) < 1.0
+
+
+def test_process_continuous_days_writes_its_spans(served):
+    """``--trace-spans``: the day's spans as Chrome-trace JSON beside the
+    catalog, one ``process`` request whose counts match the catalog."""
+    from genie_tpu_torch import tracing
+
+    root, tmp = served["root"], served["tmp"]
+    out = tmp / "traced.hdf5"
+    try:
+        printed = run_port("process_continuous_days", root,
+                           root / "Picks/2020/Tiny_2020_1_2_ver_1.npz", "--config",
+                           served["cfg_path"], "--t-end", 180.0, "--out", out,
+                           "--trace-spans")
+    finally:
+        tracing.record_with_profiler()
+        tracing.reset()
+    spans = tmp / "traced_spans.json"
+    assert f"spans → {spans}" in printed
+    evs = json.loads(spans.read_text())["traceEvents"]
+    (root_ev,) = [e for e in evs if e["name"] == "pipeline.process"]
+    n_events = len(tio.load_catalog(out))
+    assert root_ev["args"]["counts"]["magnitudes.events"] == n_events >= 2
+    assert {"pipeline.sweep", "locate.de", "associate.forward"} <= {e["name"] for e in evs}
+    assert all(e["tid"] == root_ev["tid"] for e in evs if e["ph"] == "X")
 
 
 def test_calibrate_prints_the_jax_stats_and_fits_its_corrections(served):
