@@ -33,7 +33,11 @@ Phases (any failure exits non-zero):
      under ``torch.profiler`` for device time by kernel;
   5. ``[pinn]``: the travel-time PINN of ``Grids/pinn_nc.pkl`` on the card
      against the same module on the CPU, 4096 sources in the grid box × the
-     374 stations, max |Δt| ≤ 1e-3 s, and its time per call;
+     374 stations, max |Δt| ≤ 1e-3 s, and its time per call; then
+     ``[kernel]`` records of the PINN kernel against the plain forward on
+     the card at the DE's shapes (1, 12 and 256 events × 128 candidates ×
+     374 stations), max |Δt| ≤ 2e-4 s, with kernel, bound and plain times
+     (``--pinn-kernel`` builds and runs only this);
   6. ``[production]``: run6's serving configuration, as
      ``scripts/nc_process.py --mag-model --corrections`` builds it: grid
      tables from the PINN shifted by the calibrated corrections of
@@ -44,7 +48,12 @@ Phases (any failure exits non-zero):
      timed by the corrected PINN, magnitudes U[2.2, 3.5], amplitudes from
      the magnitude model plus noise) go through ``process(pick_amp=…)``
      twice, then once more under the profiler; every planted event must be
-     located within 5 km and 0.5 s with |ΔM| ≤ 0.25;
+     located within 5 km and 0.5 s with |ΔM| ≤ 0.25, and every PINN call
+     but the covariance's ``jacfwd`` (one a location pass) must take the
+     PINN kernel. Each path that locates counts its ``pinn_trv`` launches
+     from 0 (the ``kernels`` line's ``launches_by_path``): the PINN's paths
+     ([production], [locate], [extras]' trace, [workflow]'s process) fail
+     with none, the homogeneous ones ([process], [evaluate]) with any;
   7. ``[locate]``: one ``locate_sources_batched`` call through the
      corrected PINN at the pipeline's limits, 256 events × 48 picks,
      popsize 128, 150 iterations: its time and peak memory;
@@ -747,6 +756,96 @@ def check_pinn(ctx, seed: int, n_src: int = 4096, dev="cuda"):
     return pinn
 
 
+# DE location's shapes: events per call × the population; 1 and 12 events
+# are a background and a swarm request's passes, 256 the pipeline's limit
+PINN_DE_SHAPES = ((1, 128), (12, 128), (256, 128))
+
+
+def check_pinn_kernel(cfg, seed: int, n_sta: int = 374, dev="cuda"):
+    """The PINN kernel (``ops/pinn_trv.py``) against the plain forward on
+    the card at the DE's shapes (:data:`PINN_DE_SHAPES` × ``n_sta``
+    stations drawn in the grid box, candidates uniform in the grid box),
+    with ``Grids/pinn_nc.pkl``'s weights: the largest |Δt| and the count
+    of outputs that differ, the kernel's time, ``from_cart``'s (both
+    launches and the wrapper), its bound (operations,
+    ``pinn_trv.pair_flops`` at 67 TFLOP/s) and the plain forward's time.
+    Returns the records."""
+    import torch
+
+    from genie_tpu_torch.ops import pinn_trv
+    from genie_tpu_torch.params import load_pinn
+
+    pinn = load_pinn(PINN, device=dev)
+    rng = np.random.default_rng(seed + 19)
+    _, sta_cart = draw_stations(cfg, rng, n_sta)
+    sta = torch.as_tensor(sta_cart, device=dev)
+    flat = grid_box()[1].reshape(-1, 3)
+    nb = pinn_trv.n_base(pinn.model)
+    packed = pinn_trv.pack_weights(pinn.model, pinn.scales)
+    records = []
+    for n_ev, pop in PINN_DE_SHAPES:
+        cand = np.concatenate((rng.uniform(flat.min(0), flat.max(0), (n_ev, pop, 3)),
+                               rng.uniform(-30, 30, (n_ev, pop, 1))), -1)
+        src = torch.as_tensor(cand, dtype=torch.float32, device=dev)[..., :3]
+        with torch.no_grad():
+            before = pinn_trv.pinn_trv.launches
+            got = pinn.from_cart(sta, src)
+            torch.cuda.synchronize()
+            launched = pinn_trv.pinn_trv.launches - before
+            want = pinn.plain_from_cart(sta, src)
+            err = float((got - want).abs().max())
+            unequal = int((got != want).sum())
+            ms = cuda_time_ms(lambda: pinn_trv.pinn_trv(sta, src, packed, nb))
+            from_cart_ms = cuda_time_ms(lambda: pinn.from_cart(sta, src))
+            plain_ms = cuda_time_ms(lambda: pinn.plain_from_cart(sta, src), reps=3,
+                                    warmup=1)
+        del got, want
+        n_pairs = n_ev * pop * n_sta
+        bound_ms = n_pairs * pinn_trv.pair_flops(nb) / F32_FLOP_PER_S * 1e3
+        rec = dict(form="pinn_trv", n_ev=n_ev, sources=n_ev * pop, stations=n_sta,
+                   pairs=n_pairs, launches_per_call=launched, max_abs_err_s=err,
+                   unequal_to_plain=unequal, ms=ms, from_cart_ms=from_cart_ms,
+                   bound_ms=bound_ms,
+                   bound_by="operations", share_of_bound=bound_ms / ms,
+                   plain_ms=plain_ms, pairs_per_s=n_pairs / ms * 1e3,
+                   tflop_per_s=n_pairs * pinn_trv.pair_flops(nb) / ms / 1e9)
+        print(f"[kernel] {json.dumps(rec)}", flush=True)
+        records.append(rec)
+        if launched != 2:
+            fail(f"pinn_trv: from_cart launched {launched} kernels, not 2")
+        if not np.isfinite(err) or err > 2e-4:
+            fail(f"pinn_trv at {n_ev} x {pop} x {n_sta}: max |kernel - plain| = "
+                 f"{err} s > 2e-4 s")
+        torch.cuda.empty_cache()
+    return records
+
+
+# pinn_trv launches of each path's request, the counter set to 0 just before it
+PINN_LAUNCHES = {}
+
+
+def record_pinn_launches(path: str, launches: int, events: int, pinn: bool):
+    """Keep ``path``'s PINN kernel launches for the ``kernels`` line. Fails
+    if a path whose travel times are the PINN located events without a
+    launch, or a path on homogeneous times launched the kernel."""
+    PINN_LAUNCHES[path] = launches
+    if pinn and events and launches <= 0:
+        fail(f"[{path}] located {events} events through the PINN with no pinn_trv launch")
+    if not pinn and launches:
+        fail(f"[{path}] homogeneous travel times, yet {launches} pinn_trv launches")
+
+
+def summed_counts() -> dict:
+    """The tracer's counters summed over its requests."""
+    from genie_tpu_torch import tracing
+
+    out = {}
+    for counts in tracing.export()["counts"].values():
+        for k, v in counts.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
 # -- phase 6 ---------------------------------------------------------------
 def build_production(cfg, ctx, pinn, model, x_query, dev="cuda"):
     """run6's serving configuration on the card: grid tables from the PINN
@@ -814,11 +913,15 @@ def build_production(cfg, ctx, pinn, model, x_query, dev="cuda"):
 
 def production_request(pipe, cfg, ctx, trv, mag, seed: int):
     """Two timed requests with amplitudes and a profiled third; every
-    planted event must come back located and with its magnitude. Returns
-    the fused-round launches of the second request and the picks."""
+    planted event must come back located and with its magnitude, and every
+    PINN call but the covariance's ``jacfwd`` (one a location pass) must
+    take the kernel. Returns the fused-round launches of the second request
+    and the picks."""
     import torch
 
+    from genie_tpu_torch import tracing
     from genie_tpu_torch.ops.fused_round import fused_round
+    from genie_tpu_torch.ops.pinn_trv import pinn_trv
 
     picks = make_picks(ctx, trv, seed, mag=mag)
     amp, ev_mag = picks[5], picks[6]
@@ -828,18 +931,33 @@ def production_request(pipe, cfg, ctx, trv, mag, seed: int):
     for call in range(2):
         torch.cuda.reset_peak_memory_stats()
         fused_round.launches = 0
-        t0 = time.time()
-        events = pipe.process(picks[0], picks[1], picks[2], 0.0, 600.0, pick_amp=amp)
-        torch.cuda.synchronize()
-        wall = time.time() - t0
+        pinn_trv.launches = 0
+        tracing.reset()
+        tracing.enable()
+        try:
+            t0 = time.time()
+            events = pipe.process(picks[0], picks[1], picks[2], 0.0, 600.0, pick_amp=amp)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        finally:
+            tracing.record_with_profiler()
         launches = fused_round.launches
+        counts = summed_counts()
+        tracing.reset()
         results.append((events, launches, wall, dict(pipe.stage_seconds),
                         torch.cuda.max_memory_allocated()))
         print(f"[production] call {call + 1}: {len(events)} events, {launches} "
-              f"fused_round launches, {wall:.2f} s", flush=True)
+              f"fused_round launches, {pinn_trv.launches} pinn_trv launches, "
+              f"{counts.get('trv.plain_calls', 0)} plain PINN calls in "
+              f"{counts.get('locate.passes', 0)} location passes, {wall:.2f} s", flush=True)
     events, launches, wall, stages, peak = results[-1]
     if launches <= 0:
         fail("the production path launched the fused_round kernel 0 times")
+    record_pinn_launches("production", pinn_trv.launches, len(events), pinn=True)
+    if counts.get("trv.plain_calls", 0) != counts.get("locate.passes", 0):
+        fail(f"[production] {counts.get('trv.plain_calls', 0)} PINN calls took the plain "
+             f"forward in {counts.get('locate.passes', 0)} location passes: only the "
+             f"covariance's jacfwd, one a pass, should")
     for ev in events:
         if not (np.isfinite(ev.pos_cart).all() and np.isfinite(ev.time)
                 and ev.mag is not None and np.isfinite(ev.mag)):
@@ -852,6 +970,7 @@ def production_request(pipe, cfg, ctx, trv, mag, seed: int):
     print("[stages] production, second call, host seconds: "
           + json.dumps({k: round(v, 4) for k, v in stages.items()}))
     print(f"[production] events {len(events)}, fused_round launches {launches}, "
+          f"pinn_trv launches {pinn_trv.launches}, "
           f"wall {wall:.3f} s, max_memory_allocated {peak} B ({peak / 2**30:.2f} GiB)")
     profile_request(pipe, picks, pick_amp=amp, tag="profile production",
                     ranges=("trv", "pinn"))
@@ -867,6 +986,7 @@ def locate_at_limits(ctx, trv, pinn, seed: int, n_ev: int = 256, n_pick: int = 4
     import torch
 
     from genie_tpu_torch.infer.locate import locate_sources_batched
+    from genie_tpu_torch.ops.pinn_trv import pinn_trv
 
     rng = np.random.default_rng(seed + 4)
     lo = ctx.offset_cart.cpu().numpy()
@@ -899,10 +1019,12 @@ def locate_at_limits(ctx, trv, pinn, seed: int, n_ev: int = 256, n_pick: int = 4
     run()                                      # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    pinn_trv.launches = 0
     t0 = time.time()
     loc, t_org, _ = run()
     torch.cuda.synchronize()
     ms = (time.time() - t0) * 1e3
+    record_pinn_launches("locate_at_limits", pinn_trv.launches, n_ev, pinn=True)
     peak = torch.cuda.max_memory_allocated()
     err = torch.linalg.norm(loc - pos_d, dim=1).cpu().numpy()
     cand = torch.as_tensor(rng.uniform(lo, hi, (n_ev, popsize, 3)), dtype=torch.float32,
@@ -2029,6 +2151,7 @@ def extras_phase(pipe, cfg, ctx, trv, picks, seed: int, card: str, dev="cuda",
     from genie_tpu_torch.models.travel_time import LegacyTravelTimes
     from genie_tpu_torch.ops.fused_round import fused_round
     from genie_tpu_torch.ops.interp import natural_neighbor_interp
+    from genie_tpu_torch.ops.pinn_trv import pinn_trv
     from genie_tpu_torch.ops.knn import knn, knn_tiled
     from genie_tpu_torch.ops.segment import spmm
     from genie_tpu_torch.params import load_pinn
@@ -2219,9 +2342,11 @@ def extras_phase(pipe, cfg, ctx, trv, picks, seed: int, card: str, dev="cuda",
     plain = pipe.process_from_sweep(times_s, series, pick_t, pick_sta, pick_ph, pick_amp=amp)
     planted = np.concatenate((ev_pos, ev_t[:, None]), axis=1)
     fused_round.launches = 0
+    pinn_trv.launches = 0
     (audited, sec, _) = _timed(lambda: pipe.process_from_sweep(
         times_s, series, pick_t, pick_sta, pick_ph, pick_amp=amp, trace=planted))
     launches = fused_round.launches
+    record_pinn_launches("extras_trace", pinn_trv.launches, len(audited), pinn=True)
     stages = ["peaks", "cluster", "refine", "associate", "eligible", "locate+qc", "dedup"]
     missed = {k: v for k, v in pipe.ledger.items() if v}
     same = len(plain) == len(audited) and all(
@@ -2913,6 +3038,7 @@ def evaluate_phase(seed: int, card: str, dev="cuda"):
     from genie_tpu_torch.infer.pipeline import InferencePipeline
     from genie_tpu_torch.models.detector import Detector
     from genie_tpu_torch.ops.fused_round import fused_round
+    from genie_tpu_torch.ops.pinn_trv import pinn_trv
     from genie_tpu_torch.ops.segment import aggregation_weights
     from genie_tpu_torch.params import flatten_tree, load_flax_params
     from genie_tpu_torch.scripts import eval_synthetic
@@ -3005,8 +3131,11 @@ def evaluate_phase(seed: int, card: str, dev="cuda"):
     times_s, series = pipe.detection_sweep(pick_t, pick_sta, pick_ph, 0.0, 1800.0)
     launches_sweep = fused_round.launches
     fused_round.launches = 0
+    pinn_trv.launches = 0
     events = pipe.process_from_sweep(times_s, series, pick_t, pick_sta, pick_ph)
     launches_after = fused_round.launches
+    record_pinn_launches("evaluate_run6_process", pinn_trv.launches, len(events),
+                         pinn=False)
     ev4 = np.array([[*ev.pos_cart, ev.time] for ev in events]).reshape(-1, 4)
     post = {"seconds": time.time() - t1, "series_max": float(np.max(series)),
             "launches_sweep": launches_sweep, "launches_after_sweep": launches_after,
@@ -3165,6 +3294,7 @@ def workflow_phase(ctx, pinn, seed: int, dev="cuda", config=None, grid_steps: in
     from genie_tpu_torch.infer.pipeline import InferencePipeline
     from genie_tpu_torch.io import load_picks
     from genie_tpu_torch.ops.fused_round import fused_round
+    from genie_tpu_torch.ops.pinn_trv import pinn_trv
     from genie_tpu_torch.params import _load_pickle, load_magnitude_model, load_pinn
     from genie_tpu_torch.scripts import CHECKPOINT_FILE, PINN_FILE
     from genie_tpu_torch.scripts.calibrate import correction_observations
@@ -3294,9 +3424,11 @@ def workflow_phase(ctx, pinn, seed: int, dev="cuda", config=None, grid_steps: in
     # 5. process_continuous_days' device function, against the pipeline's API
     (ctx_w, trv_w, model), load_s, _ = _timed(lambda: load_inputs(root, cfg, dev))
     fused_round.launches = 0
+    pinn_trv.launches = 0
     events, proc_s, peak = _timed(lambda: process_picks(
         cfg, ctx_w, trv_w, model, t, sta, ph, amp, 0.0, 600.0, device=dev))
     launches = fused_round.launches
+    record_pinn_launches("workflow_process", pinn_trv.launches, len(events), pinn=True)
     pipe = InferencePipeline(model, cfg, ctx_w, trv_w.from_cart, device=dev)
     fused_round.launches = 0
     events_api = pipe.process(t.astype(np.float32), sta, ph.astype(np.float32), 0.0, 600.0,
@@ -3387,6 +3519,9 @@ def main():
                     help="on a machine with several cards: build the kernel and "
                          "run only [shard] and [scaling]'s measure_scaling, over "
                          "NCCL with one rank per card")
+    ap.add_argument("--pinn-kernel", action="store_true",
+                    help="build the kernels, hold the PINN kernel against the plain "
+                         "forward at the DE's shapes and time both, then stop")
     ap.add_argument("--score-eval", nargs="+", metavar="PARAMS:SEED",
                     help="score eval_synthetic --save-params detectors at thresholds "
                          "0.2 and 0.3 on JAX's committed timeline and on the port's "
@@ -3410,9 +3545,14 @@ def main():
 
     from genie_tpu_torch.infer.pipeline import InferencePipeline
     from genie_tpu_torch.ops.fused_round import fused_round
+    from genie_tpu_torch.ops.pinn_trv import pinn_trv
     from genie_tpu_torch.ops.segment import aggregation_weights
 
     build_kernels()
+    if args.pinn_kernel:
+        check_pinn_kernel(run6_config(), args.seed)
+        print(f"[card] {nvidia_smi()[0]}")
+        return
     if args.score_eval:
         score_eval(args.score_eval, nvidia_smi()[0])
         return
@@ -3465,6 +3605,7 @@ def main():
     for call in range(2):
         torch.cuda.reset_peak_memory_stats()
         fused_round.launches = 0
+        pinn_trv.launches = 0
         t0 = time.time()
         events = pipe.process(picks[0], picks[1], picks[2], 0.0, 600.0)
         torch.cuda.synchronize()
@@ -3478,6 +3619,7 @@ def main():
     events, launches, wall, stages, peak = results[-1]
     if launches <= 0:
         fail("the main path launched the fused_round kernel 0 times")
+    record_pinn_launches("homogeneous", pinn_trv.launches, len(events), pinn=False)
     if len(results[0][0]) != len(events):
         fail(f"two identical requests gave {len(results[0][0])} and "
              f"{len(events)} events")
@@ -3511,6 +3653,7 @@ def main():
     mark("scaling")
 
     pinn = check_pinn(ctx, args.seed)
+    pinn_records = check_pinn_kernel(cfg, args.seed)
     pipe_p, ctx_p, trv_p, mag = build_production(cfg, ctx, pinn, model, x_query)
     launches_p, picks_p = production_request(pipe_p, cfg, ctx_p, trv_p, mag, args.seed)
     locate_at_limits(ctx_p, trv_p, pinn, args.seed)
@@ -3574,6 +3717,14 @@ def main():
                                                    bwd_records + bwd_edge + bwd_eval),
                            "forms": bwd_records, "edge_forms": bwd_edge,
                            "eval_forms": bwd_eval},
+    }, {
+        "name": "pinn_trv", "route": "cuda",
+        "source": "genie_tpu_torch/csrc/pinn_trv.cu",
+        "replaces": None,
+        "launches": PINN_LAUNCHES["production"],
+        "launches_by_path": dict(PINN_LAUNCHES),
+        "max_abs_err_s": max(r["max_abs_err_s"] for r in pinn_records),
+        "forms": pinn_records,
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

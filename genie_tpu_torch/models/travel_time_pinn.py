@@ -14,10 +14,12 @@ parameter gradients), the station boundary ``T(sta, sta) = 0``, causality
 and damping of the velocity net toward a prior.
 
 The module takes broadcast-compatible station and source inputs, so
-:meth:`TravelTimePN.from_cart` runs the source embedding once per source
-and the pair branches once per (source, station) pair. It has no in-place
-op, no ``.item()`` and no branch on values, so ``torch.func.jacfwd`` and
-``vmap`` go through it (the location covariance does).
+:meth:`TravelTimePN.plain_from_cart` runs the source embedding once per
+source and the pair branches once per (source, station) pair. It has no
+in-place op, no ``.item()`` and no branch on values, so ``torch.func.jacfwd``
+and ``vmap`` go through it (the location covariance does).
+:meth:`TravelTimePN.from_cart` takes the hand-written kernel
+(``ops/pinn_trv.py``) instead where the inputs allow it.
 """
 
 from __future__ import annotations
@@ -28,8 +30,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from genie_tpu_torch import tracing
 from genie_tpu_torch.device import resolve_device
 from genie_tpu_torch.models.layers import PReLU
+from genie_tpu_torch.ops import pinn_trv
 
 
 class ScaleParams(NamedTuple):
@@ -143,10 +147,21 @@ class TravelTimesPN(nn.Module):
 class TravelTimePN:
     """Bound surrogate with the port's travel-time contract: ``from_cart``
     maps ``(n_sta, 3)`` stations and ``(…, n_src, 3)`` sources to ``(…,
-    n_src, n_sta, 2)`` seconds. At most ``max_pairs`` (source, station)
-    pairs go through the network at once, so the DE objective's millions of
-    pairs do not hold every 50-wide activation in device memory; the chunks
-    are split by sources, so the result is the same."""
+    n_src, n_sta, 2)`` seconds.
+
+    The path follows the inputs: CUDA float32 tensors that nothing
+    differentiates through go to the hand-written kernel
+    (``ops/pinn_trv.py``), one call for any number of pairs; CPU tensors,
+    and calls that autograd records or a ``torch.func`` transform wraps
+    (the trainer's sensitivity, the covariance's and GraphDD's ``jacfwd``,
+    GraphDD's training), take :meth:`plain_from_cart`, whose derivatives
+    they need. The kernel is built for the widths of the port's PINNs (50
+    hidden, 10 embedding, 2 phases); on the kernel's path a PINN of other
+    widths raises, and :meth:`plain_from_cart` serves it. There at most ``max_pairs`` (source, station) pairs go
+    through the network at once, so millions of pairs do not hold every
+    50-wide activation in device memory; the chunks are split by sources,
+    so the result is the same. The tracer counts ``trv.plain_calls`` where
+    CUDA tensors take the plain forward."""
 
     max_pairs = 1 << 22
 
@@ -154,6 +169,27 @@ class TravelTimePN:
         self.model = model
         self.scales = scales
         self.proj = projection
+        self._params = (None, [])
+        self._packed = (None, None)
+
+    def _kernel_weights(self, sta_cart, src_cart):
+        """The packed weights if this call takes the kernel, else None.
+        They are packed again after any parameter or scale changes (a new
+        tensor or an in-place update). Raises for a PINN whose widths the
+        kernel is not built for (``pinn_trv.check_widths``)."""
+        if not (sta_cart.is_cuda and src_cart.is_cuda
+                and sta_cart.dtype == src_cart.dtype == torch.float32):
+            return None
+        if self._params[0] is not self.model:
+            self._params = (self.model, list(self.model.parameters()))
+        params = self._params[1]
+        if pinn_trv.differentiated((sta_cart, src_cart), params):
+            return None
+        key = tuple((t.data_ptr(), t._version) for t in (*params, *self.scales))
+        if self._packed[0] != key:
+            pinn_trv.check_widths(self.model)
+            self._packed = (key, pinn_trv.pack_weights(self.model, self.scales))
+        return self._packed[1]
 
     def _norm(self, x):
         return (x - self.scales.center) / self.scales.x_scale
@@ -163,6 +199,16 @@ class TravelTimePN:
         return self.model(sta_n, src_n, s.conversion_factor, s.v_mean, s.t_scale)
 
     def from_cart(self, sta_cart, src_cart):
+        packed = self._kernel_weights(sta_cart, src_cart)
+        if packed is not None:
+            return pinn_trv.pinn_trv(sta_cart, src_cart, packed, pinn_trv.n_base(self.model))
+        if sta_cart.is_cuda:
+            tracing.count("trv.plain_calls")
+        return self.plain_from_cart(sta_cart, src_cart)
+
+    def plain_from_cart(self, sta_cart, src_cart):
+        """:meth:`from_cart` through the PyTorch modules, in chunks of at
+        most ``max_pairs`` pairs."""
         sta_n = self._norm(sta_cart)
         src_n = self._norm(src_cart)
         lead = src_n.shape[:-1]
