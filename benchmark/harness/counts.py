@@ -93,6 +93,54 @@ def detection_forward_flops(n_src: int, n_sta: int, n_q: int, n_t: int, k_sta: i
     return int(f)
 
 
+def association_forward_flops(n_src: int, n_sta: int, n_qsrc: int, n_pick: int,
+                              k_sta: int, k_spc: int, k_time: int, k_pair: int,
+                              k_attn: int, use_abs: bool, e: int) -> int:
+    """Model FLOPs of the association head of one window's full forward on
+    one grid, beyond ``forward_detection_only``: the spatial attention to
+    the ``n_qsrc`` query sources, the read-out onto the product, the
+    association trunk's two rounds (5 mask channels, the trunk's 30-wide
+    latent as input), the P and S slice collapses over ``k_time`` product
+    nodes a pick, and the station-source attention over each pick's
+    ``k_pair`` co-station picks and a null slot (3 heads of 15)."""
+    P = n_src * n_sta
+    h, lat = 30, 15
+    hl_s, hl_a = 5 * lat, 3 * lat
+    nk = n_qsrc * k_attn                               # query-source attention
+    f = _linear(nk, 3, hl_s) + 2 * _linear(nk, h + 3, hl_s)
+    f += 2 * nk * hl_s * 2 + _linear(n_qsrc, lat, h)
+    f += _linear(P, h + 3, h) + _linear(P, h, lat)     # read-out
+    f += _linear(P, lat + (6 if use_abs else 0) + h + 5, h)     # association trunk
+    f += 2 * _linear(P, h, h) + 2 * k_spc * P * h
+    f += P * (2 * k_sta * h + 2 * 2 * h * (h + h + e + 5))
+    f += 2 * _linear(P, 2 * h, h) + 2 * k_spc * P * h
+    f += P * (2 * k_sta * h + 2 * 2 * lat * (2 * h + h + e + 5))
+    for _ in range(2):                                  # slice collapses
+        f += _linear(n_pick * k_time, h + 2, h) + _linear(n_pick, h, lat)
+    n = n_qsrc * n_pick * (k_pair + 1)                  # station-source attention
+    f += _linear(n, 2 * lat + 6, h) + _linear(n, h, hl_a)
+    f += _linear(n, h + 3, h) + _linear(n, h, hl_a)
+    f += _linear(n, 2 * lat + 8, h) + _linear(n, h, hl_a)
+    f += 2 * n * hl_a * 2
+    f += _linear(n_qsrc * n_pick, lat, h) + _linear(n_qsrc * n_pick, h, 2)
+    return int(f)
+
+
+def train_step_flops(n_windows: int, n_src: int, n_sta: int, n_q: int, n_qsrc: int,
+                     n_pick: int, graph: dict, use_abs: bool, e: int) -> int:
+    """Model FLOPs of one training step: each window's full forward on its
+    grid (detection over ``n_q`` query points and 9 time offsets, and the
+    association head), and the backward counted as twice the forward."""
+    fwd = detection_forward_flops(n_src, n_sta, n_q, 9, graph["k_sta_edges"],
+                                  graph["k_spc_edges"], graph["k_spatial_attn"],
+                                  use_abs, e)
+    fwd += association_forward_flops(n_src, n_sta, n_qsrc, n_pick, graph["k_sta_edges"],
+                                     graph["k_spc_edges"], graph["k_time_edges"],
+                                     graph["k_pick_pairs"], graph["k_spatial_attn"],
+                                     use_abs, e)
+    return 3 * n_windows * fwd
+
+
 def non_empty_windows(pick_t, t_start, t_end, t_win, step_size, max_t) -> int:
     """Sweep windows that hold a pick (the sweep skips the others)."""
     t0s = np.arange(t_start, t_end, t_win / step_size)

@@ -93,3 +93,37 @@ def idle_pct(run):
         return None
     window = run.window[1] - run.window[0]
     return 100.0 * (1.0 - run.summary["busy_s"] / window)
+
+
+def steps_per_s(run):
+    """Requests completed in the window over the wall time from the
+    window's start to the last completion (optimizer steps of a training
+    cell)."""
+    done = completed(run)
+    if not done:
+        return None
+    return len(done) / (max(r.t_done for r in done) - run.window[0])
+
+
+def stage_s_per_request(run, stage: str):
+    """Host seconds of one of the program's ``stage_seconds`` per completed
+    request, in a traced run."""
+    done = completed(run)
+    if run.summary is None or not done:
+        return None
+    return sum(r.stage_seconds.get(stage, 0.0) for r in done) / len(done)
+
+
+def train_mfu(run):
+    """Model FLOPs of the completed training steps (``counts.train_step_flops``
+    at the cell's shapes) over their wall time, as a share of the float32
+    peak (%), in a traced run."""
+    done = completed(run)
+    if run.summary is None or not done:
+        return None
+    per = run.counts.train_step_flops(
+        run.n_batch, run.n_src, run.n_sta, run.n_spc_query, run.n_src_query,
+        run.max_picks, run.graph, run.model["use_absolute_pos"],
+        4 if run.model["use_updated_model_definition"] else 0)
+    wall = sum(r.t_done - r.t_start for r in done)
+    return 100.0 * per * len(done) / wall / run.counts.F32_FLOP_PER_S

@@ -9,13 +9,50 @@ The cell (``BENCHMARK.json``'s ``workloads``) names a configuration
 (``benchmark/traffic/<name>.json``); each metric is read by
 ``benchmark/metrics/<name>.py``; the limits of the check are
 ``benchmark/limits/<cell>.json``. Set-up makes the inputs from the seed,
-builds the program's pipeline and runs one request; the window then sends
-requests in a closed loop with one client for ``--seconds`` (with
-``--trace 1`` under ``torch.profiler``, for at most the mix's
-``trace_requests`` requests); after it the plain reference checks a sample
-of the requests. The last line of standard output is one JSON object.
-``--precision tf32`` runs the program with TF32 matrix products: the
-check's control, which must come out not correct.
+builds the program and warms it up; the window then sends requests in a
+closed loop with one client for ``--seconds`` (with ``--trace 1`` under
+``torch.profiler``, for at most the mix's ``trace_requests`` requests);
+after it the plain reference checks what the program produced. The last
+line of standard output is one JSON object. ``--precision tf32`` runs the
+program with TF32 matrix products: the check's control, which must come
+out not correct.
+
+Entries. A cell's entry is its traffic mix's ``entry``, or else its
+configuration's. ``process`` and ``detection_sweep`` are the program's
+``InferencePipeline`` methods, run by :class:`Inference` below. Any other
+entry ``<e>`` is the file ``benchmark/entries/<e>.py``, loaded by path as
+the metric readers are, whose class ``Entry`` does for its cells what
+:class:`Inference` does for these, so that a new entry needs a new file
+and entries in ``BENCHMARK.json``, and no edit here:
+
+* ``Entry(setting)``: the set-up. ``setting`` holds ``root`` (the
+  checkout), ``cell``, ``spec`` (the configuration), ``mix``, ``limits``
+  (the cell's limits file), ``seed``, ``seconds``, ``trace``,
+  ``precision``, ``device``, ``mark(name)`` (prints the seconds since the
+  last mark: call it after each phase of set-up), ``make_inputs``
+  (:func:`make_inputs`) and ``options`` (what a test passes to
+  :func:`run_cell`: ``plant``, a function called with the program before
+  the benchmark wraps it, and sizes of its own). It makes its inputs from
+  the seed and builds the
+  program;
+* ``warm_up()``: the rest of set-up, from the first request that reaches
+  every stage the window reaches; the device is synchronized after it;
+* ``ranges`` and ``labels``: the ``record_function`` ranges whose device
+  time and kernels a traced run sums (``trace.summarize``), and those of
+  them that name the idle gaps in ``breakdown``;
+* ``begin(i)``: the record of timed request ``i``: an object with
+  ``t_start``, ``t_done``, ``error`` (``None``) and ``stage_seconds``
+  (a dict), which :func:`run_cell` keeps in ``RunData.records``;
+  ``request(rec)``: that request, the device synchronized at its end (an
+  exception fails it, and the window goes on); ``end(rec)``: after its
+  ``t_done``, its line for standard error;
+* ``release()``: frees the program's state once the window has closed and
+  the memory peak has been read;
+* ``check(records)``: the check's numbers, after the release and with TF32
+  off; each is compared with its limit, and the run is correct where every
+  one is finite and within it and no request failed;
+* ``fields()``: the entry's own attributes of ``RunData``, which its
+  metric readers read.
 """
 
 from __future__ import annotations
@@ -33,11 +70,13 @@ import subprocess  # noqa: E402
 import sys  # noqa: E402
 import traceback  # noqa: E402
 from pathlib import Path  # noqa: E402
+from types import SimpleNamespace  # noqa: E402
 from typing import NamedTuple  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 BENCH = ROOT / "benchmark"
 FORBIDDEN = ("jax", "jaxlib", "flax", "genie_tpu")
+INFERENCE = ("process", "detection_sweep")
 
 
 class Inputs(NamedTuple):
@@ -59,12 +98,23 @@ def load_json(path: Path) -> dict:
         return json.load(f)
 
 
-def load_reader(name: str):
-    path = BENCH / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"bench_metric_{name}", path)
+def _load_module(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def load_reader(name: str):
+    return _load_module(BENCH / "metrics" / f"{name}.py", f"bench_metric_{name}").read
+
+
+def load_entry(name: str):
+    """The ``Entry`` class of ``benchmark/entries/<name>.py``."""
+    path = BENCH / "entries" / f"{name}.py"
+    if not path.is_file():
+        fail(f"no entry {name!r}: {path.relative_to(ROOT)} is not there")
+    return _load_module(path, f"bench_entry_{name}").Entry
 
 
 def make_inputs(spec: dict, n_sta: int | None = None, n_query: int | None = None):
@@ -107,33 +157,155 @@ class RunData:
         self.__dict__.update(kw)
 
 
-def run_cell(args, dev: str = "cuda", n_sta=None, n_query=None, plant=None,
-             overrides=None) -> dict:
+class Inference:
+    """The entries ``process`` and ``detection_sweep``: the program's
+    ``InferencePipeline`` over chunks of picks. Options: ``n_sta``
+    stations, the first ``n_query`` query nodes, ``plant`` called with the
+    pipeline before the benchmark wraps its stages."""
+
+    def __init__(self, setting):
+        from benchmark.harness import check, system, traffic
+        from benchmark.harness.weights import seeded_state_dict
+        from benchmark.reference.pipeline import make_detector
+
+        self.system, self.check_mod = system, check
+        spec, mix, opt = setting.spec, setting.mix, setting.options
+        self.spec, self.mix, self.seed = spec, mix, setting.seed
+        self.entry = setting.entry
+        self.chunk_s = float(spec["chunk_s"])
+        self.device = setting.device
+        self.inputs = make_inputs(spec, opt.get("n_sta"), opt.get("n_query"))
+        self.tools = check.ReferenceTools(spec, self.inputs, self.device)
+        tools = self.tools
+        self.chunks = traffic.make_chunks(mix, setting.seed,
+                                          traffic.n_chunks(mix, setting.seconds),
+                                          tools.sta, tools.box_lo, tools.box_hi,
+                                          tools.trv.from_cart, tools.mag, self.chunk_s)
+        setting.mark("inputs and traffic")
+        self.weights_sd = None
+        if spec["weights"] == "seed":
+            self.weights_sd = seeded_state_dict(make_detector(spec), setting.seed,
+                                                self.device)
+        self.pipe = system.build_system(spec, self.inputs, self.device, self.weights_sd)
+        setting.mark("program set-up")
+        if opt.get("plant") is not None:
+            opt["plant"](self.pipe)
+        self.cap = system.Capture()
+        system.instrument(self.pipe, self.cap)
+        self.with_mag = bool(spec.get("magnitudes"))
+        self.ranges = system.STAGES + ("trv",)
+        self.labels = system.STAGES
+        self.max_t = None
+
+    def _call(self, ch):
+        if self.entry == "process":
+            return self.pipe.process(ch.pick_t, ch.pick_sta, ch.pick_phase, 0.0,
+                                     self.chunk_s, pick_amp=ch.pick_amp)
+        return self.pipe.detection_sweep(ch.pick_t, ch.pick_sta, ch.pick_phase, 0.0,
+                                         self.chunk_s)
+
+    def _sync(self):
+        import torch
+
+        if self.device.type == "cuda":
+            torch.cuda.synchronize()
+
+    def warm_up(self):
+        # one request of this cell's traffic that reaches every stage
+        self._call(next((ch for ch in self.chunks if len(ch.ev_t)), self.chunks[0]))
+
+    def begin(self, i: int):
+        rec = self.cap.begin(i % len(self.chunks))
+        rec.n0 = self.system.launches()
+        return rec
+
+    def request(self, rec):
+        import numpy as np
+
+        out = self._call(self.chunks[rec.chunk])
+        self._sync()
+        if self.entry == "process":
+            if not self.system.well_formed(out, self.with_mag):
+                rec.error = "malformed catalog"
+            rec.events = [self.system.event_tuple(ev) for ev in out]
+            rec.stage_seconds = dict(self.pipe.stage_seconds)
+        else:
+            times, series = out
+            if not (np.isfinite(series).all() and series.shape[1] == len(times)):
+                rec.error = "malformed series"
+
+    def end(self, rec) -> str:
+        if self.entry != "process":
+            rec.stage_seconds = {"sweep": rec.t_done - rec.t_start}
+        rec.launches = self.system.launches() - rec.n0
+        return (f"chunk {rec.chunk}: {rec.t_done - rec.t_start:.4f} s, "
+                f"{rec.launches} launches, stages "
+                f"{ {k: round(v, 4) for k, v in rec.stage_seconds.items()} }, "
+                f"{'' if rec.events is None else len(rec.events)} events"
+                f"{'' if rec.error is None else ', ' + rec.error}")
+
+    def release(self):
+        import torch
+
+        self.cap.current = None
+        del self.pipe
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def check(self, records) -> dict:
+        check, mix = self.check_mod, self.mix
+        ref = self.tools.pipeline(self.weights_sd)
+        self.max_t = ref.max_t
+        numbers = {}
+        for rec in check.sample(records, mix["check_requests"], self.seed):
+            for k, v in check.compare_request(ref, rec, self.chunks[rec.chunk],
+                                              self.chunk_s, self.entry).items():
+                numbers[k] = max(numbers.get(k, 0.0), v)
+        if self.entry == "process":
+            numbers.update(check.location_numbers(ref, records, self.chunks,
+                                                  mix["check_location_requests"],
+                                                  self.seed))
+        return numbers
+
+    def fields(self) -> dict:
+        inputs, m = self.inputs, self.spec["model"]
+        return dict(chunk_s=self.chunk_s, chunks=self.chunks, max_t=self.max_t,
+                    n_sta=int(inputs.sta_cart.shape[0]),
+                    n_src=int(inputs.grids_cart.shape[1]),
+                    n_grids=int(inputs.grids_cart.shape[0]),
+                    n_query=int(inputs.x_query.shape[0]),
+                    edge_width=4 if m["use_updated_model_definition"] else 0)
+
+
+def _overlay(base: dict, overrides: dict | None) -> dict:
+    """``base`` with each group of ``overrides`` ({group: {key: value}} or
+    {key: value}) laid over it."""
+    for group, vals in (overrides or {}).items():
+        base[group] = {**base[group], **vals} if isinstance(vals, dict) else vals
+    return base
+
+
+def run_cell(args, dev: str = "cuda", overrides=None, mix_overrides=None,
+             **options) -> dict:
     """One run of a cell; returns the result line's object. The tests run
-    it on the CPU at a small size: ``n_sta`` stations, the first ``n_query``
-    query nodes, ``overrides`` ({group: {key: value}}) over the
-    configuration's settings, and ``plant`` called with the program's
-    pipeline before the benchmark wraps its stages (to plant faults
-    underneath them)."""
-    import numpy as np
+    it on the CPU at a small size: ``overrides`` and ``mix_overrides``
+    ({group: {key: value}}) over the configuration's settings and the
+    traffic mix's, and ``options`` handed to the entry (``n_sta``,
+    ``n_query``, ``plant``, …)."""
     import torch
 
-    from benchmark.harness import check, counts, system, trace, traffic
-    from benchmark.harness.weights import seeded_state_dict
-    from benchmark.reference.pipeline import make_detector
+    from benchmark.harness import check, counts, trace
 
     bench = load_json(ROOT / "BENCHMARK.json")
     cells = {w["name"]: w for w in bench["workloads"]}
     if args.workload not in cells:
         fail(f"no workload {args.workload!r} in BENCHMARK.json")
     cell = cells[args.workload]
-    spec = load_json(BENCH / "configs" / f"{cell['config']}.json")
-    for group, vals in (overrides or {}).items():
-        spec[group] = {**spec[group], **vals} if isinstance(vals, dict) else vals
-    mix = load_json(BENCH / "traffic" / f"{cell['traffic']}.json")
+    spec = _overlay(load_json(BENCH / "configs" / f"{cell['config']}.json"), overrides)
+    mix = _overlay(load_json(BENCH / "traffic" / f"{cell['traffic']}.json"),
+                   mix_overrides)
     limits = load_json(BENCH / "limits" / f"{cell['name']}.json")
-    chunk_s = float(spec["chunk_s"])
-    entry = spec["entry"]
+    entry = mix.get("entry", spec["entry"])
     device = torch.device(dev)
     tf32 = args.precision == "tf32"
     torch.backends.cuda.matmul.allow_tf32 = tf32
@@ -147,34 +319,15 @@ def run_cell(args, dev: str = "cuda", n_sta=None, n_query=None, plant=None,
         last[0] = now
 
     mark("start and imports")
-    inputs = make_inputs(spec, n_sta, n_query)
-    tools = check.ReferenceTools(spec, inputs, device)
-    chunks = traffic.make_chunks(mix, args.seed, traffic.n_chunks(mix, args.seconds),
-                                 tools.sta, tools.box_lo, tools.box_hi,
-                                 tools.trv.from_cart, tools.mag, chunk_s)
-    mark("inputs and traffic")
-    weights_sd = None
-    if spec["weights"] == "seed":
-        weights_sd = seeded_state_dict(make_detector(spec), args.seed, device)
-    pipe = system.build_system(spec, inputs, device, weights_sd)
-    mark("program set-up")
-    if plant is not None:
-        plant(pipe)
-    cap = system.Capture()
-    system.instrument(pipe, cap)
-    with_mag = bool(spec.get("magnitudes"))
-
-    def request(ch):
-        if entry == "process":
-            return pipe.process(ch.pick_t, ch.pick_sta, ch.pick_phase, 0.0, chunk_s,
-                                pick_amp=ch.pick_amp)
-        return pipe.detection_sweep(ch.pick_t, ch.pick_sta, ch.pick_phase, 0.0, chunk_s)
-
-    # warm-up: one request of this cell's traffic that reaches every stage
-    request(next((ch for ch in chunks if len(ch.ev_t)), chunks[0]))
+    setting = SimpleNamespace(root=ROOT, cell=cell, spec=spec, mix=mix, limits=limits,
+                              entry=entry, seed=args.seed, seconds=args.seconds, trace=args.trace,
+                              precision=args.precision, device=device, mark=mark,
+                              make_inputs=make_inputs, options=options)
+    ent = Inference(setting) if entry in INFERENCE else load_entry(entry)(setting)
+    ent.warm_up()
     if device.type == "cuda":
         torch.cuda.synchronize()
-    mark("warm-up request")
+    mark("warm-up")
     setup_s = time.time() - T_PROCESS
 
     prof = None
@@ -185,77 +338,44 @@ def run_cell(args, dev: str = "cuda", n_sta=None, n_query=None, plant=None,
                                          if device.type == "cuda" else [])
         prof = profile(activities=acts)
         prof.start()
+    records = []
     t_win = time.perf_counter()
     deadline = t_win + args.seconds
     i = 0
     while time.perf_counter() < deadline and not (
             args.trace and i >= mix["trace_requests"]):
-        ch = chunks[i % len(chunks)]
-        rec = cap.begin(i % len(chunks))
-        n0 = system.launches()
+        rec = ent.begin(i)
+        records.append(rec)
         rec.t_start = time.perf_counter()
         try:
-            out = request(ch)
-            if device.type == "cuda":
-                torch.cuda.synchronize()
-            if entry == "process":
-                if not system.well_formed(out, with_mag):
-                    rec.error = "malformed catalog"
-                rec.events = [system.event_tuple(ev) for ev in out]
-                rec.stage_seconds = dict(pipe.stage_seconds)
-            else:
-                times, series = out
-                if not (np.isfinite(series).all() and series.shape[1] == len(times)):
-                    rec.error = "malformed series"
+            ent.request(rec)
         except Exception as e:  # a failed request is counted, the loop goes on
             rec.error = f"{type(e).__name__}: {e}"
             traceback.print_exc()
         rec.t_done = time.perf_counter()
-        if entry != "process":
-            rec.stage_seconds = {"sweep": rec.t_done - rec.t_start}
-        rec.launches = system.launches() - n0
-        print(f"request {i} chunk {rec.chunk}: {rec.t_done - rec.t_start:.4f} s, "
-              f"{rec.launches} launches, stages "
-              f"{ {k: round(v, 4) for k, v in rec.stage_seconds.items()} }, "
-              f"{'' if rec.events is None else len(rec.events)} events"
-              f"{'' if rec.error is None else ', ' + rec.error}", file=sys.stderr)
+        print(f"request {i} {ent.end(rec)}", file=sys.stderr)
         i += 1
-    cap.current = None
     t_end = time.perf_counter()
     summary = None
     if prof is not None:
         prof.stop()
-        summary = trace.summarize(prof, system.STAGES + ("trv",), system.STAGES)
+        summary = trace.summarize(prof, ent.ranges, ent.labels)
         del prof
     peak = int(torch.cuda.max_memory_allocated(device)) if device.type == "cuda" else 0
-    del pipe
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
+    ent.release()
 
     # -- the check, with TF32 off whatever the program ran with ------------
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    records = cap.records
-    ref = tools.pipeline(weights_sd)
-    numbers = {}
-    for rec in check.sample(records, mix["check_requests"], args.seed):
-        for k, v in check.compare_request(ref, rec, chunks[rec.chunk], chunk_s,
-                                          entry).items():
-            numbers[k] = max(numbers.get(k, 0.0), v)
-    if entry == "process":
-        numbers.update(check.location_numbers(ref, records, chunks,
-                                              mix["check_location_requests"], args.seed))
+    t_check = time.time()
+    numbers = ent.check(records)
+    print(f"check: {time.time() - t_check:.3f} s", file=sys.stderr)
     failed = sum(r.error is not None for r in records)
     correct = failed == 0 and check.verdict(numbers, limits)
 
-    m = spec["model"]
-    run = RunData(
-        cell=cell, spec=spec, mix=mix, entry=entry, chunk_s=chunk_s, setup_s=setup_s,
-        records=records, window=(t_win, t_end), summary=summary, counts=counts,
-        chunks=chunks, max_t=ref.max_t, n_sta=int(inputs.sta_cart.shape[0]),
-        n_src=int(inputs.grids_cart.shape[1]), n_grids=int(inputs.grids_cart.shape[0]),
-        n_query=int(inputs.x_query.shape[0]),
-        edge_width=4 if m["use_updated_model_definition"] else 0)
+    run = RunData(cell=cell, spec=spec, mix=mix, entry=entry, setup_s=setup_s,
+                  records=records, window=(t_win, t_end), summary=summary,
+                  counts=counts, **ent.fields())
     kind = "per_layer" if args.trace else "end_to_end"
     metrics = {}
     for met in bench[kind]:

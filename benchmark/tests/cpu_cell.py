@@ -23,3 +23,25 @@ def run_small(workload: str, seed: int = SEED, plant=None, precision: str = "f32
     args = argparse.Namespace(workload=workload, seed=seed, seconds=seconds, trace=trace,
                               precision=precision)
     return run.run_cell(args, dev="cpu", plant=plant, **SMALL)
+
+
+# the training cell: 40 stations, 2 windows of 128 picks, 200 + 16 queries,
+# a 600 s timeline of at most 16 events and 256 false picks, and a band of
+# batch counts for that size (the limits file's is the cell's)
+TRAIN_SMALL = dict(n_sta=40, overrides={"graph": {"max_picks": 128}},
+                   batch_band={"real_picks": [1, 256], "labelled_events": [1, 32]},
+                   mix_overrides={"synth": {"T": 600.0, "max_events": 16,
+                                            "n_false_max": 256},
+                                  "train": {"n_batch": 2, "n_spc_query": 200,
+                                            "n_src_query": 16}})
+TRAIN_SEED = 7
+
+
+def run_small_train(seed: int = TRAIN_SEED, plant=None, precision: str = "f32",
+                    seconds: float = 0.5, trace: int = 0) -> dict:
+    from benchmark import run
+
+    torch.set_num_threads(4)
+    args = argparse.Namespace(workload="nc_run6.train", seed=seed, seconds=seconds,
+                              trace=trace, precision=precision)
+    return run.run_cell(args, dev="cpu", plant=plant, **TRAIN_SMALL)

@@ -22,7 +22,7 @@ def _run(workload, seed, precision):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("workload", ["nc_run6.day_background", "nc_run6.swarm",
-                                      "nc_run6_updated.sweep"])
+                                      "nc_run6_updated.sweep", "nc_run6.train"])
 def test_tf32_control_is_not_correct(workload):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")

@@ -56,3 +56,27 @@ def test_non_empty_windows():
     want = sum(any(t0 - 10 < p < t0 + 40 for p in (0.0, 100.0))
                for t0 in range(0, 200, 5))
     assert n == want
+
+
+def test_association_flops_hand_count():
+    # every size 1, so each (query source, pick) has one co-station slot and the null
+    f = counts.association_forward_flops(1, 1, 1, 1, 1, 1, 1, 1, 1, False, 0)
+    want = 2 * 3 * 75 + 2 * 2 * 33 * 75 + 2 * 75 * 2 + 2 * 15 * 30    # query attention
+    want += 2 * 33 * 30 + 2 * 30 * 15                                 # read-out
+    want += 2 * 50 * 30                                               # trunk input
+    want += 2 * 2 * 30 * 30 + 2 * 30 + 2 * 30 + 4 * 30 * 65           # round 1
+    want += 2 * 2 * 60 * 30 + 2 * 30 + 2 * 30 + 4 * 15 * 95           # round 2
+    want += 2 * (2 * 32 * 30 + 2 * 30 * 15)                           # P and S slices
+    n = 2
+    want += n * 2 * (36 * 30 + 30 * 45 + 33 * 30 + 30 * 45 + 38 * 30 + 30 * 45)
+    want += 2 * n * 45 * 2 + 2 * 15 * 30 + 2 * 30 * 2                 # attention, projection
+    assert f == want
+
+
+def test_train_step_flops_is_three_forwards_a_window():
+    g = {"k_sta_edges": 8, "k_spc_edges": 15, "k_time_edges": 10, "k_pick_pairs": 16,
+         "k_spatial_attn": 10}
+    fwd = (counts.detection_forward_flops(500, 374, 2000, 9, 8, 15, 10, False, 0)
+           + counts.association_forward_flops(500, 374, 96, 512, 8, 15, 10, 16, 10, False, 0))
+    assert counts.train_step_flops(8, 500, 374, 2000, 96, 512, g, False, 0) == 3 * 8 * fwd
+    assert round(counts.train_step_flops(8, 500, 374, 2000, 96, 512, g, False, 0) / 1e9) == 568

@@ -6,13 +6,16 @@ the benchmark's wrappers: half of the grids left out of the sweep's
 ensemble mean; half of the clustered candidates left out; refinement
 returning its candidates unchanged; the association weights altered; half
 of the associated events left out; the located events moved 2 km; the
-magnitudes altered. A run with nothing planted is correct (``test_bench_reference``).
+magnitudes altered; and, in the training cell, each fault of
+``train_faults``. A run with nothing planted is correct
+(``test_bench_reference``).
 """
 
 import numpy as np
 import pytest
 
-from benchmark.tests.cpu_cell import run_small
+from benchmark.tests.cpu_cell import run_small, run_small_train
+from benchmark.tests.train_faults import FAULTS
 
 
 def half_the_grids(pipe):
@@ -93,3 +96,39 @@ def test_fault_is_not_correct(fault, number):
 def test_sweep_fault_in_the_updated_definition():
     res = run_small("nc_run6_updated.sweep", plant=half_the_grids)
     assert res["correct"] is False
+
+
+@pytest.mark.parametrize("fault,number", [
+    ("optimizer_skipped", "update_gap"), ("half_the_batch", "loss_gap"),
+    ("one_backward_skipped", "grad_gap"), ("half_the_picks", "batch_gap"),
+    ("events_dropped", "batch_gap")])
+def test_training_fault_is_not_correct(fault, number):
+    res = run_small_train(plant=FAULTS[fault])
+    assert res["correct"] is False
+    got = res["checked"][number]
+    assert not got["value"] <= got["limit"], res["checked"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault,number", [
+    ("optimizer_skipped", "update_gap"), ("half_the_batch", "loss_gap"),
+    ("one_backward_skipped", "grad_gap"), ("half_the_picks", "batch_gap"),
+    ("events_dropped", "batch_gap")])
+def test_training_fault_on_the_card(fault, number):
+    """Each training fault at the cell's own size, on three seeds."""
+    import argparse
+
+    import torch
+
+    from benchmark import run
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    for seed in (2**31 + 201, 2**31 + 202, 2**31 + 203):
+        args = argparse.Namespace(workload="nc_run6.train", seed=seed, seconds=2.0,
+                                  trace=0, precision="f32")
+        res = run.run_cell(args, plant=FAULTS[fault])
+        print(f"fault {fault} seed {seed}: correct {res['correct']}, "
+              + ", ".join(f"{k} {v['value']!r}" for k, v in res["checked"].items()))
+        got = res["checked"][number]
+        assert res["correct"] is False and not got["value"] <= got["limit"]

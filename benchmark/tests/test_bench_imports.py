@@ -22,7 +22,7 @@ def _loaded(code: str) -> set:
 
 def test_reference_loads_neither_jax_nor_the_program():
     names = _loaded("import benchmark.reference.nn, benchmark.reference.domain, "
-                    "benchmark.reference.pipeline")
+                    "benchmark.reference.pipeline, benchmark.reference.train")
     assert not names & (FORBIDDEN | {"genie_tpu_torch"})
 
 
@@ -30,6 +30,16 @@ def test_a_run_loads_no_jax():
     code = ("from benchmark.tests.cpu_cell import run_small\n"
             "run_small('nc_run6_updated.sweep')\n"
             "import benchmark.run, benchmark.harness.check, benchmark.harness.system\n")
+    names = _loaded(code)
+    assert "genie_tpu_torch" in names
+    assert not names & FORBIDDEN
+
+
+def test_a_training_run_loads_no_jax():
+    """The training cell's entry (``benchmark/entries/train.py``) loads the
+    program's trainer, generator and workflow, and no JAX."""
+    code = ("from benchmark.tests.cpu_cell import run_small_train\n"
+            "run_small_train()\n")
     names = _loaded(code)
     assert "genie_tpu_torch" in names
     assert not names & FORBIDDEN
